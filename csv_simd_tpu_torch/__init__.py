@@ -1,10 +1,14 @@
 """csv_simd_tpu_torch: the PyTorch + CUDA port of csv_simd_tpu.
 
-This slice ports the offsets-free main path: `create_packed(path)` builds
-the index on an NVIDIA card with two hand-written Hopper kernels (the
-stage-1 build, csrc/stage1_v4.cu, and the row popcount prefix,
+Two paths are ported. The offsets-free path: `create_packed(path)`
+builds the index on an NVIDIA card with two hand-written Hopper kernels
+(the stage-1 build, csrc/stage1_v4.cu, and the row popcount prefix,
 csrc/prefix.cu), and `PackedDeviceTape` serves batched field lookups and
-typed columns from it. Every function takes an explicit device; the
+typed columns from it. The offsets route: `create(path)` builds the
+fold-layout words with kernel B3 (csrc/stage1_pack.cu), copies them to
+the host and extracts the offsets there into a `Tape`, which
+`DeviceTape.from_tape` serves from the card; `create_streaming` does the
+same chunk by chunk. Every function takes an explicit device; the
 default is "cuda", and device="cpu" runs the plain PyTorch versions of
 the kernels. The package imports torch and never jax or csv_simd_tpu;
 the pure-host modules it shares with the JAX package are loaded from
@@ -12,15 +16,34 @@ their sources by `_host`.
 """
 
 from . import _host  # noqa: F401  (registers the shared host modules)
-from .api import create_packed
+from .api import create, create_from_bytes, create_packed
+from .artifact import load_tape, save_tape
 from .config import Dialect
+from .device_tape import DeviceTape
 from .errors import InvalidCsvFormat, IoError
+from .index import build_index, build_index_device
 from .offsetfree import PackedDeviceTape
-from .tape import Header
+from .streaming import (
+    StreamingIndexBuilder,
+    build_index_streaming,
+    create_streaming,
+)
+from .tape import Header, Tape
 
 __all__ = [
+    "create",
+    "create_from_bytes",
     "create_packed",
+    "Tape",
+    "build_index",
+    "build_index_device",
+    "StreamingIndexBuilder",
+    "build_index_streaming",
+    "create_streaming",
+    "DeviceTape",
     "PackedDeviceTape",
+    "save_tape",
+    "load_tape",
     "Dialect",
     "Header",
     "InvalidCsvFormat",

@@ -1,8 +1,9 @@
 """The pure-host modules, shared with the JAX package by source.
 
-config (Dialect), errors, utils (as_u8), serve, tape (Header, NewLine),
-artifact (_fingerprint) and golden (the NumPy oracle) import nothing but
-numpy and each other. Importing them through `csv_simd_tpu` would run
+config (Dialect), errors, utils (as_u8), serve, tape (Header, NewLine,
+Tape), artifact (save_tape, load_tape), golden (the NumPy oracle) and
+native (the C++ host engine with the fold-layout extractor, built by g++
+at first use) import nothing but numpy, ctypes and each other. Importing them through `csv_simd_tpu` would run
 that package's `__init__`, which imports jax. Loading the same files
 under this package's name binds their relative imports to this package,
 so neither jax nor `csv_simd_tpu` is ever imported: the machine that
@@ -26,6 +27,7 @@ _MODULES = (
     ("tape", "tape.py"),
     ("artifact", "artifact.py"),
     ("golden", "golden.py"),
+    ("native", "native/__init__.py"),
 )
 
 

@@ -1,16 +1,19 @@
 """Build and bind the hand-written CUDA kernels.
 
-At first use, `nvcc` compiles every `csrc/*.cu` for Hopper (sm_90a) into
-one shared library with a plain C interface under `_build/` (named by a
-hash of the sources, so an edited source is rebuilt), and `ctypes` loads
-it. Pointers and the stream pass as `c_void_p`; each C entry point
-returns `cudaGetLastError()` after its launches, and the wrappers raise
-when that is not 0.
+At first use, `nvcc` compiles every `csrc/*.cu` for Hopper (sm_90a), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface under `_build/` (named by a hash
+of the sources, so an edited source is rebuilt); `ctypes` loads it.
+Pointers and the stream pass as `c_void_p`; each C entry point returns
+`cudaGetLastError()` after its launches, and the wrappers raise when
+that is not 0.
 
 Each wrapper launches on `torch.cuda.current_stream()`, allocates its
 outputs and scratch with `torch.empty`, checks device, dtype, contiguity
 and shape before it passes a pointer, and adds one to its entry in
-LAUNCHES after a launch, and nowhere else.
+LAUNCHES after a launch, and nowhere else. A carry-in may be a Python int
+or a 0-d integer tensor; a tensor is read by the kernel from device
+memory, so chained calls need no host sync.
 """
 
 from __future__ import annotations
@@ -30,10 +33,13 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # launches per kernel wrapper, for showing that a run went through them
-LAUNCHES = {"stage1_v4": 0, "row_prefix": 0}
+LAUNCHES = {"stage1_v4": 0, "row_prefix": 0, "stage1_fold": 0,
+            "stage1_v2": 0, "stage1_v1": 0}
+# layout codes of csrc/stage1_pack.cu
+_FOLD, _V2, _V1 = 0, 1, 2
 
 _lib = None
 
@@ -78,23 +84,39 @@ def build(verbose: bool = False) -> dict:
     if out.exists() and not verbose:
         return {"path": str(out), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        failed = None
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0 and failed is None:
+                failed = (cmd, proc.returncode, text)
+        if failed is not None:
+            cmd, rc, text = failed
+            raise RuntimeError(
+                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                f"{r.stdout}{r.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        log.append(r.stdout + r.stderr)
+        os.replace(lib, out)
     return {"path": str(out), "seconds": time.perf_counter() - t0,
-            "log": r.stdout + r.stderr}
+            "log": "".join(log)}
 
 
 def _library():
@@ -104,9 +126,16 @@ def _library():
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.csv_stage1_v4_chunks.argtypes = [ll]
         lib.csv_stage1_v4_chunks.restype = ll
-        lib.csv_stage1_v4.argtypes = [vp, ll, vp, vp, vp, vp, i, i, i,
-                                      i, i, i, i, i, vp]
+        lib.csv_stage1_v4.argtypes = [vp, ll, vp, vp, vp, vp, vp, i, i,
+                                      i, i, i, i, i, i, vp]
         lib.csv_stage1_v4.restype = i
+        lib.csv_stage1_fold_max_tile.argtypes = []
+        lib.csv_stage1_fold_max_tile.restype = i
+        lib.csv_stage1_pack_chunks.argtypes = [i, ll, i]
+        lib.csv_stage1_pack_chunks.restype = ll
+        lib.csv_stage1_pack.argtypes = [i, vp, ll, vp, vp, vp, vp, i, i, i,
+                                        i, i, i, i, i, vp]
+        lib.csv_stage1_pack.restype = i
         lib.csv_row_prefix_scratch.argtypes = [ll]
         lib.csv_row_prefix_scratch.restype = ll
         lib.csv_row_prefix.argtypes = [vp, ll, vp, vp, vp]
@@ -117,11 +146,12 @@ def _library():
     return _lib
 
 
-def _check_words(t: torch.Tensor, what: str) -> None:
+def _check_words(t: torch.Tensor, what: str,
+                 dtype: torch.dtype = torch.int32) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{what}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
     if t.data_ptr() % 16:
@@ -134,7 +164,29 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
 
 
-def stage1_v4(words: torch.Tensor, carry_in: int, dialect,
+def _structural(dialect, what: str) -> tuple:
+    """The delimiter and newlines, padded to five with repeats."""
+    newlines = tuple(dialect.newlines)
+    if len(newlines) > 4:
+        raise ValueError(f"{what} takes at most four newline bytes")
+    structural = (dialect.delimiter,) + newlines
+    return structural + (dialect.delimiter,) * (5 - len(structural))
+
+
+def _carry(carry_in, dev: torch.device) -> tuple:
+    """(device pointer or None, int, tensor to keep alive) for a carry-in
+    given as a Python int or a 0-d integer tensor."""
+    if isinstance(carry_in, torch.Tensor):
+        if carry_in.numel() != 1 or carry_in.dtype.is_floating_point:
+            raise ValueError("carry_in must be an int or a one-element "
+                             f"integer tensor, got {carry_in.dtype} "
+                             f"{tuple(carry_in.shape)}")
+        t = carry_in.to(device=dev, dtype=torch.int32).reshape(1)
+        return t.data_ptr(), 0, t
+    return None, int(carry_in) & 1, None
+
+
+def stage1_v4(words: torch.Tensor, carry_in, dialect,
               count_nonascii: bool):
     """Kernel B1 on CUDA int32 byte quads (a whole number of 32-byte
     words) -> (packed flat int32, parity 0-d int32, non-ASCII count 0-d
@@ -144,14 +196,11 @@ def stage1_v4(words: torch.Tensor, carry_in: int, dialect,
     if n_bytes == 0 or n_bytes % 32:
         raise ValueError(f"stage1_v4: {n_bytes} bytes is not a positive "
                          "multiple of 32")
-    newlines = tuple(dialect.newlines)
-    if len(newlines) > 4:
-        raise ValueError("stage1_v4 takes at most four newline bytes")
-    structural = (dialect.delimiter,) + newlines
-    structural += (dialect.delimiter,) * (5 - len(structural))
+    structural = _structural(dialect, "stage1_v4")
     lib = _library()
     dev = words.device
     with torch.cuda.device(dev):
+        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
         n_chunks = lib.csv_stage1_v4_chunks(n_bytes)
         out = torch.empty(n_bytes // 32, dtype=torch.int32, device=dev)
         scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
@@ -159,12 +208,76 @@ def stage1_v4(words: torch.Tensor, carry_in: int, dialect,
         counter = torch.empty(1, dtype=torch.int64, device=dev)
         err = lib.csv_stage1_v4(
             words.data_ptr(), n_bytes, out.data_ptr(), scratch.data_ptr(),
-            scalars.data_ptr(), counter.data_ptr(), carry_in & 1,
+            scalars.data_ptr(), counter.data_ptr(), carry_ptr, carry_int,
             int(bool(count_nonascii)), dialect.quote, *structural,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "stage1_v4")
     LAUNCHES["stage1_v4"] += 1
     return out, scalars[0], scalars[1]
+
+
+def _stage1_pack(layout: int, name: str, data: torch.Tensor, carry_in,
+                 dialect, tile: int = 0):
+    """One launch of csrc/stage1_pack.cu -> (packed flat int32, parity
+    0-d int32, structural count 0-d int32)."""
+    n_bytes = data.numel() * data.element_size()
+    if n_bytes == 0 or n_bytes % 4096:
+        raise ValueError(f"{name}: {n_bytes} bytes is not a positive "
+                         "multiple of 4096")
+    structural = _structural(dialect, name)
+    lib = _library()
+    if layout == _FOLD:
+        rows = n_bytes // 512
+        max_tile = lib.csv_stage1_fold_max_tile()
+        if tile <= 0 or tile % 8 or rows % tile or tile > max_tile:
+            raise ValueError(
+                f"{name}: tile {tile} must be a positive multiple of 8 "
+                f"that divides the {rows} rows, at most {max_tile}")
+    dev = data.device
+    with torch.cuda.device(dev):
+        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
+        n_chunks = lib.csv_stage1_pack_chunks(layout, n_bytes, tile)
+        out = torch.empty(n_bytes // 32, dtype=torch.int32, device=dev)
+        scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
+        scalars = torch.empty(3, dtype=torch.int32, device=dev)
+        err = lib.csv_stage1_pack(
+            layout, data.data_ptr(), n_bytes, out.data_ptr(),
+            scratch.data_ptr(), scalars.data_ptr(), carry_ptr, carry_int,
+            dialect.quote, *structural, tile,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out, scalars[0], scalars[2]
+
+
+def stage1_fold(words: torch.Tensor, carry_in, dialect, tile: int):
+    """Kernel B3 on CUDA (rows, 128) int32 byte quads -> (fold-layout
+    packed (rows/8, 128) int32, parity 0-d int32). `tile` is the fold
+    tile in rows: a multiple of 8 that divides rows."""
+    _check_words(words, "stage1_fold")
+    packed, parity, _count = _stage1_pack(_FOLD, "stage1_fold", words,
+                                          carry_in, dialect, tile)
+    return packed.view(-1, 128), parity
+
+
+def stage1_v2(words: torch.Tensor, carry_in, dialect):
+    """Kernel B5 on CUDA (rows, 128) int32 byte quads, rows % 8 == 0 ->
+    (v2-layout packed (rows/8, 128) int32, count 0-d int32, parity 0-d
+    int32)."""
+    _check_words(words, "stage1_v2")
+    packed, parity, count = _stage1_pack(_V2, "stage1_v2", words, carry_in,
+                                         dialect)
+    return packed.view(-1, 128), count, parity
+
+
+def stage1_v1(b2d: torch.Tensor, carry_in, dialect):
+    """Kernel B6 on CUDA (rows, 128) uint8, rows % 32 == 0 -> (v1
+    sublane-major packed (rows/32, 128) int32, count 0-d int32, parity
+    0-d int32)."""
+    _check_words(b2d, "stage1_v1", torch.uint8)
+    packed, parity, count = _stage1_pack(_V1, "stage1_v1", b2d, carry_in,
+                                         dialect)
+    return packed.view(-1, 128), count, parity
 
 
 def row_prefix(packed: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,12 @@
-"""Top-level factory: file path -> offsets-free device tape
-(csv_simd_tpu/api.py `create_packed`)."""
+"""Top-level factories (csv_simd_tpu/api.py): file path or bytes -> Tape
+(`create`, `create_from_bytes`) or -> offsets-free device tape
+(`create_packed`).
+
+The index build takes a backend and a device: "cuda" (kernel B3 on the
+card, then native extraction on the host), "torch" (its plain PyTorch
+version on `device`), "native" (the C++ host engine), "golden" (the
+NumPy oracle) and "auto" ("cuda" for a CUDA device, "torch" otherwise).
+"""
 
 from __future__ import annotations
 
@@ -11,6 +18,55 @@ import numpy as np
 from .config import DEFAULT_DIALECT
 from .errors import IoError
 from .offsetfree import PackedDeviceTape
+from .tape import Header, Tape
+from .utils import as_u8
+
+_UTF8_MSG = (
+    "validate_utf8 on input with bytes >= 0x80 needs the UTF-8 validator, "
+    "which is not ported yet (ROADMAP A7)"
+)
+
+
+def _map(filename) -> np.ndarray:
+    """The file's bytes as a read-only NumPy view of an mmap."""
+    try:
+        with open(filename, "rb") as f:
+            mapped = _mmap.mmap(f.fileno(), 0, access=_mmap.ACCESS_READ)
+    except ValueError as e:
+        # mmap refuses zero-length files, like the reference's Io error
+        raise IoError(f"{filename}: {e}") from e
+    except OSError as e:
+        raise IoError(str(e)) from e
+    return np.frombuffer(mapped, dtype=np.uint8)
+
+
+def _build_index(data, dialect, backend: str, device):
+    from .utils.metrics import GLOBAL
+
+    with GLOBAL.span(f"index_build[{backend}]", len(data)):
+        if backend == "golden":
+            from . import golden
+
+            return golden.structural_index(data, dialect)
+        from .index import build_index
+
+        return build_index(data, dialect=dialect, backend=backend,
+                           device=device)
+
+
+def create_from_bytes(data, dialect=None, backend: str = "auto",
+                      validate_utf8: bool = False, device="cuda") -> Tape:
+    """Build a Tape from an in-memory byte buffer. validate_utf8=True
+    passes ASCII input and raises NotImplementedError for input with a
+    byte >= 0x80 (the UTF-8 validator is not ported yet)."""
+    dialect = dialect or DEFAULT_DIALECT
+    if validate_utf8 and bool((as_u8(data) >= 0x80).any()):
+        raise NotImplementedError(_UTF8_MSG)
+    header = Header.parse(data, delimiter=dialect.delimiter,
+                          quote_aware=dialect.header_quotes,
+                          quote=dialect.quote)
+    index = _build_index(data, dialect, backend, device)
+    return Tape(data, index, header)
 
 
 def create_packed(filename: str | os.PathLike, dialect=None,
@@ -21,14 +77,16 @@ def create_packed(filename: str | os.PathLike, dialect=None,
     (build) and kernel B2 (row prefix). The index is the packed bitmask
     and the row popcount prefix, never an offsets array. `device="cpu"`
     runs the plain PyTorch versions instead of the kernels."""
-    try:
-        with open(filename, "rb") as f:
-            mapped = _mmap.mmap(f.fileno(), 0, access=_mmap.ACCESS_READ)
-    except ValueError as e:
-        # mmap refuses zero-length files, like the reference's Io error
-        raise IoError(f"{filename}: {e}") from e
-    except OSError as e:
-        raise IoError(str(e)) from e
-    data = np.frombuffer(mapped, dtype=np.uint8)
-    return PackedDeviceTape(data, dialect or DEFAULT_DIALECT,
+    return PackedDeviceTape(_map(filename), dialect or DEFAULT_DIALECT,
                             validate_utf8=validate_utf8, device=device)
+
+
+def create(filename: str | os.PathLike, dialect=None, backend: str = "auto",
+           validate_utf8: bool = False, device="cuda") -> Tape:
+    """Build a Tape from a CSV file. The file is memory-mapped and the
+    Tape serves a NumPy view of the mapping; with backend "cuda" the
+    bytes go to the card once, kernel B3 packs the structural mask, and
+    the words come back (1/8 of the input) for the host extractor."""
+    return create_from_bytes(_map(filename), dialect=dialect,
+                             backend=backend, validate_utf8=validate_utf8,
+                             device=device)

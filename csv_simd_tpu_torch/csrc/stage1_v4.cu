@@ -20,178 +20,37 @@
 // with __vcmpeq4, which serves ASCII and non-ASCII dialects alike (the TPU
 // kernel's two SWAR branches collapse into one). The TPU kernel carried the
 // quote parity through SMEM because its grid runs in order; blocks here run
-// in parallel, so the carry takes two passes over the input:
-//   pass A  each block reduces the quote parity (and non-ASCII count) of its
-//           64 KiB chunk;
-//   scan    one block turns the chunk parities into each chunk's incoming
-//           carry (an exclusive XOR scan seeded with carry_in) and writes the
-//           parity out and the count;
-//   pass B  each block walks its chunk again in 4 KiB steps: a thread builds
-//           16-bit quote and structural masks, takes the in-thread prefix XOR
-//           by shifts of 1/2/4/8, gets its exclusive parity within the warp
-//           from __ballot_sync and __popc, the warps' parities combine in
-//           shared memory, and thread pairs join their 16-bit halves into one
-//           word with __shfl_xor_sync.
+// in parallel, so the carry takes two passes over the input (stage1_core.cuh):
+// pass A reduces each 64 KiB chunk's quote parity and non-ASCII count, one
+// block scans the chunk parities into carries, and pass B walks each chunk
+// again in 4 KiB steps; here thread pairs join their 16-bit masks into one
+// word with __shfl_xor_sync.
 // Pass A reads the input a second time; a one-pass carry (decoupled
 // look-back) is later work. The dual-rail carry, the int8 MXU scans and the
 // lane-placed pack matmuls of the TPU kernel were Mosaic workarounds and have
 // no counterpart here.
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-#include "scan.cuh"
+#include "stage1_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kStepBytes = kThreads * 16;  // 4 KiB per block step
 constexpr int kSteps = 16;
 constexpr long long kChunkBytes = (long long)kStepBytes * kSteps;  // 64 KiB
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxStructural = 5;  // the delimiter and up to four newlines
-
-struct ByteClasses {
-  uint32_t quote;                  // the quote byte in all four byte lanes
-  uint32_t structural[kMaxStructural];
-};
-
-// __vcmpeq4 result (0xff per equal byte) -> 4-bit mask, byte k -> bit k.
-// The multiplier 0x00204081 (bits 0, 7, 14, 21) moves flag bits 7/15/23/31
-// to 28..31; every other product lands on its own bit below 28, so no carry
-// reaches them.
-__device__ __forceinline__ uint32_t nibble(uint32_t cmp) {
-  return ((cmp & 0x80808080u) * 0x00204081u) >> 28;
-}
-
-__device__ __forceinline__ uint32_t quote16(const uint4 v, const ByteClasses& c) {
-  return nibble(__vcmpeq4(v.x, c.quote)) |
-         (nibble(__vcmpeq4(v.y, c.quote)) << 4) |
-         (nibble(__vcmpeq4(v.z, c.quote)) << 8) |
-         (nibble(__vcmpeq4(v.w, c.quote)) << 12);
-}
-
-__device__ __forceinline__ uint32_t structural4(uint32_t w, const ByteClasses& c) {
-  uint32_t m = 0;
-#pragma unroll
-  for (int i = 0; i < kMaxStructural; ++i) m |= __vcmpeq4(w, c.structural[i]);
-  return nibble(m);
-}
-
-__device__ __forceinline__ uint32_t structural16(const uint4 v, const ByteClasses& c) {
-  return structural4(v.x, c) | (structural4(v.y, c) << 4) |
-         (structural4(v.z, c) << 8) | (structural4(v.w, c) << 12);
-}
-
-__device__ __forceinline__ uint32_t high_bytes16(const uint4 v) {
-  return __popc(v.x & 0x80808080u) + __popc(v.y & 0x80808080u) +
-         __popc(v.z & 0x80808080u) + __popc(v.w & 0x80808080u);
-}
-
-// Pass A: quote parity (and optionally the bit-7 byte count) of each chunk.
-__global__ void __launch_bounds__(kThreads)
-chunk_parity(const uint4* __restrict__ in, long long n_bytes, ByteClasses c,
-             int count_nonascii, int* __restrict__ chunk_par,
-             unsigned long long* __restrict__ nonascii) {
-  __shared__ int s_par[kWarps];
-  __shared__ unsigned s_high[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long base = (long long)blockIdx.x * kChunkBytes;
-  uint32_t quotes = 0, high = 0;
-  for (int step = 0; step < kSteps; ++step) {
-    const long long off = base + (long long)step * kStepBytes + threadIdx.x * 16;
-    if (off < n_bytes) {
-      const uint4 v = in[off >> 4];
-      quotes += __popc(quote16(v, c));
-      if (count_nonascii) high += high_bytes16(v);
-    }
-  }
-  const uint32_t bal = __ballot_sync(kFull, quotes & 1u);
-  const unsigned warp_high = __reduce_add_sync(kFull, high);
-  if (lane == 0) {
-    s_par[warp] = __popc(bal) & 1;
-    s_high[warp] = warp_high;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int par = 0;
-    unsigned long long h = 0;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) {
-      par ^= s_par[i];
-      h += s_high[i];
-    }
-    chunk_par[blockIdx.x] = par;
-    if (count_nonascii && h) atomicAdd(nonascii, h);
-  }
-}
-
-// The carry scan: chunk_carry[i] = carry_in ^ chunk_par[0..i); scalars[0] is
-// the parity out and scalars[1] the non-ASCII count (-1: not counted).
-__global__ void __launch_bounds__(csv_scan::kThreads)
-chunk_carry_scan(const int* __restrict__ chunk_par, int* __restrict__ chunk_carry,
-                 int n_chunks, int carry_in, int count_nonascii,
-                 const unsigned long long* __restrict__ nonascii,
-                 int* __restrict__ scalars) {
-  csv_scan::exclusive_scan_one_block<csv_scan::Xor>(
-      chunk_par, chunk_carry, n_chunks, carry_in, &scalars[0]);
-  if (threadIdx.x == 0) scalars[1] = count_nonascii ? (int)*nonascii : -1;
-}
 
 // Pass B: mask and pack each chunk with its incoming carry.
 __global__ void __launch_bounds__(kThreads)
 mask_pack(const uint4* __restrict__ in, long long n_bytes, ByteClasses c,
           const int* __restrict__ chunk_carry, uint32_t* __restrict__ out) {
   __shared__ uint32_t s_wpar[2][kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint32_t lanes_below = (1u << lane) - 1u;
+  const int lane = threadIdx.x & 31;
   const long long base = (long long)blockIdx.x * kChunkBytes;
   uint32_t carry = (uint32_t)chunk_carry[blockIdx.x] & 1u;
   for (int step = 0; step < kSteps; ++step) {
     const long long off = base + (long long)step * kStepBytes + threadIdx.x * 16;
-    const bool live = off < n_bytes;
-    uint32_t q = 0, s = 0;
-    if (live) {
-      const uint4 v = in[off >> 4];
-      q = quote16(v, c);
-      s = structural16(v, c);
-    }
-    // in-thread inclusive prefix XOR: bit j = XOR of quote bits 0..j
-    uint32_t p = q;
-    p ^= p << 1;
-    p ^= p << 2;
-    p ^= p << 4;
-    p ^= p << 8;
-    const uint32_t bal = __ballot_sync(kFull, __popc(q) & 1u);
-    const uint32_t lane_excl = __popc(bal & lanes_below) & 1u;
-    // two buffers: a warp that runs ahead writes the other one, and the
-    // barrier of the step between keeps it from the one being read
-    const int buf = step & 1;
-    if (lane == 0) s_wpar[buf][warp] = __popc(bal) & 1u;
-    __syncthreads();
-    uint32_t warp_excl = 0, step_par = 0;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) {
-      const uint32_t w = s_wpar[buf][i];
-      warp_excl ^= (i < warp) ? w : 0u;
-      step_par ^= w;
-    }
-    const uint32_t in_quote = p ^ (0u - (carry ^ warp_excl ^ lane_excl));
-    const uint32_t m = s & ~in_quote & 0xffffu;
+    const uint32_t m = step_mask(in, off, n_bytes, c, carry, s_wpar, step);
     const uint32_t upper = __shfl_xor_sync(kFull, m, 1);
     // n_bytes % 32 == 0, so both threads of a pair are live or neither is
-    if (live && !(lane & 1)) out[off >> 5] = m | (upper << 16);
-    carry ^= step_par;
+    if (off < n_bytes && !(lane & 1)) out[off >> 5] = m | (upper << 16);
   }
-}
-
-ByteClasses make_classes(int quote, const int* structural) {
-  ByteClasses c;
-  c.quote = (uint32_t)(quote & 0xff) * 0x01010101u;
-  for (int i = 0; i < kMaxStructural; ++i)
-    c.structural[i] = (uint32_t)(structural[i] & 0xff) * 0x01010101u;
-  return c;
 }
 
 }  // namespace
@@ -206,12 +65,14 @@ long long csv_stage1_v4_chunks(long long n_bytes) {
 // in: n_bytes of input (n_bytes > 0, a multiple of 32, 16-byte aligned).
 // out: n_bytes / 32 words. chunk_scratch: 2 * csv_stage1_v4_chunks(n_bytes)
 // ints. scalars: 2 ints (parity out, non-ASCII count). counter: one 64-bit
-// scratch word. structural: the delimiter and newlines, padded to five with
-// repeats. Returns cudaGetLastError() after the launches.
+// scratch word. carry_ptr: a device int whose bit 0 is the carry-in, or null
+// to take carry_in. structural: the delimiter and newlines, padded to five
+// with repeats. Returns cudaGetLastError() after the launches.
 int csv_stage1_v4(const void* in, long long n_bytes, void* out,
                   void* chunk_scratch, void* scalars, void* counter,
-                  int carry_in, int count_nonascii, int quote, int s0, int s1,
-                  int s2, int s3, int s4, void* stream) {
+                  const void* carry_ptr, int carry_in, int count_nonascii,
+                  int quote, int s0, int s1, int s2, int s3, int s4,
+                  void* stream) {
   if (n_bytes <= 0 || n_bytes % 32 != 0) return (int)cudaErrorInvalidValue;
   const long long n_chunks = csv_stage1_v4_chunks(n_bytes);
   if (n_chunks > (1LL << 30)) return (int)cudaErrorInvalidValue;
@@ -220,20 +81,11 @@ int csv_stage1_v4(const void* in, long long n_bytes, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* chunk_par = static_cast<int*>(chunk_scratch);
   int* chunk_carry = chunk_par + n_chunks;
-  auto* nonascii = static_cast<unsigned long long*>(counter);
-  cudaError_t err;
-  if (count_nonascii) {
-    err = cudaMemsetAsync(nonascii, 0, sizeof(unsigned long long), st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  chunk_parity<<<(unsigned)n_chunks, kThreads, 0, st>>>(
-      static_cast<const uint4*>(in), n_bytes, c, count_nonascii, chunk_par,
-      nonascii);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  chunk_carry_scan<<<1, csv_scan::kThreads, 0, st>>>(
-      chunk_par, chunk_carry, (int)n_chunks, carry_in & 1, count_nonascii,
-      nonascii, static_cast<int*>(scalars));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cudaError_t err = launch_carry(
+      in, n_bytes, kSteps, n_chunks, c, count_nonascii, chunk_par, chunk_carry,
+      static_cast<unsigned long long*>(counter), carry_ptr, carry_in,
+      static_cast<int*>(scalars), st);
+  if (err != cudaSuccess) return (int)err;
   mask_pack<<<(unsigned)n_chunks, kThreads, 0, st>>>(
       static_cast<const uint4*>(in), n_bytes, c, chunk_carry,
       static_cast<uint32_t*>(out));

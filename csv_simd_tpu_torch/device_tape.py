@@ -1,7 +1,16 @@
-"""Typed columns over a device tape (csv_simd_tpu/device_tape.py, the
-subset the offsets-free tape serves).
+"""Device-resident tapes and their typed columns
+(csv_simd_tpu/device_tape.py): `DeviceTape`, which serves batched
+(record, field) gathers from the bytes and an int32 offsets index on the
+device, and the typed-column surface that it and the offsets-free tape
+share.
 
-Everything derives from one primitive the concrete tape provides:
+Serving is slot arithmetic and gathers, as torch ops:
+
+  slot  = (record + 1) * jump + field
+  start = index[slot] + 1; end = index[slot + 1]
+  out[i, j] = bytes[start_i + j] masked to j < end_i - start_i
+
+Everything typed derives from one primitive the concrete tape provides:
 `gather_fields(records, fields, max_len)` -> (bytes (N, max_len) uint8,
 TRUE lengths (N,) int32, valid (N,) bool) tensors on the tape's device.
 The JAX package's `lax.scan` digit loops are Python loops over the
@@ -19,6 +28,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .device import resolve_device
+from .utils import as_u8
 
 _INT32_MIN = -(2**31)
 
@@ -61,6 +73,30 @@ def _take_fill(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     width = x.shape[1]
     got = torch.gather(x, 1, idx.clamp(0, width - 1).long()[:, None])[:, 0]
     return torch.where(idx < width, got, _INT32_MIN)
+
+
+def _gather_fields(data: torch.Tensor, index: torch.Tensor,
+                   records: torch.Tensor, fields: torch.Tensor, jump: int,
+                   field_cnt: int, record_cnt: int, max_len: int):
+    """Batched (record, field) -> (bytes (N, max_len) uint8, TRUE lengths
+    (N,) int32, valid (N,) bool) from the bytes and an int32 index on one
+    device. Index reads clamp to the last entry, as the JAX gathers do,
+    so an invalid query reads something harmless and is masked out."""
+    valid = ((records >= 0) & (records + 1 < record_cnt)
+             & (fields >= 0) & (fields < field_cnt))
+    r = torch.where(valid, records, 0)
+    f = torch.where(valid, fields, 0)
+    slots = (r + 1) * jump + f
+    last = index.shape[0] - 1
+    starts = index[slots.clamp(max=last)] + 1
+    ends = index[(slots + 1).clamp(max=last)]
+    lengths = torch.where(valid, ends - starts, 0)
+    pos = starts[:, None] + torch.arange(max_len, dtype=torch.int32,
+                                         device=data.device)[None, :]
+    in_range = pos < ends[:, None]
+    pos = pos.clamp(0, data.shape[0] - 1)
+    out = torch.where(in_range & valid[:, None], data[pos], 0)
+    return out, lengths, valid
 
 
 class TypedColumnsMixin:
@@ -112,6 +148,53 @@ class TypedColumnsMixin:
         no exponent; values 0.0 where not ok."""
         out, lengths, valid = self._column_gather(field, max_len, records)
         return _parse_float32(out, lengths, valid)
+
+
+class DeviceTape(TypedColumnsMixin):
+    """Tape with bytes and index resident on a device for batched
+    serving. Construct from a host Tape (`DeviceTape.from_tape`) or from
+    raw parts; lookups return (bytes (N, max_len) uint8, lengths (N,),
+    valid (N,)) tensors on the tape's device."""
+
+    def __init__(self, data, index, jump: int, field_cnt: int,
+                 record_cnt: int, header=None, device="cuda"):
+        self.device = resolve_device(device)
+        self.header = header  # optional Header (column names)
+        # guard before any int32 conversion: the host backends emit int64
+        # indexes for inputs of 2 GiB or more, and a wrapped offset would
+        # silently mis-serve
+        idx_host = (index.detach().cpu().numpy()
+                    if isinstance(index, torch.Tensor) else np.asarray(index))
+        if idx_host.size and int(idx_host[-1]) >= 2**31:
+            raise ValueError(
+                "device tape uses int32 offsets: this index addresses "
+                ">= 2 GiB; serve it from the host Tape (the sharded tape "
+                "is not ported yet)")
+        if isinstance(data, torch.Tensor):
+            self.data = data.to(device=self.device, dtype=torch.uint8)
+        else:
+            from .offsetfree import _to_device
+
+            host = as_u8(data)
+            self.data = _to_device(host, host.size, self.device)
+        self.index = torch.from_numpy(
+            np.ascontiguousarray(idx_host, dtype=np.int32)).to(self.device)
+        self.jump = int(jump)
+        self.field_cnt = int(field_cnt)
+        self.record_cnt = int(record_cnt)
+
+    @classmethod
+    def from_tape(cls, tape, device="cuda") -> "DeviceTape":
+        return cls(tape.data_bytes, np.asarray(tape.index),
+                   tape.record_jump_size, tape.field_cnt, tape.record_cnt,
+                   header=tape.header, device=device)
+
+    def gather_fields(self, records, fields, max_len: int = 64):
+        """Batched (record, field) -> (bytes, lengths, valid)."""
+        return _gather_fields(
+            self.data, self.index, as_int32(records, self.device),
+            as_int32(fields, self.device), self.jump, self.field_cnt,
+            self.record_cnt, max_len)
 
 
 def _check_not_truncated(lengths, valid, max_len: int) -> None:

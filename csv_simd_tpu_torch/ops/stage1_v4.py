@@ -19,19 +19,20 @@ from __future__ import annotations
 import torch
 
 from ..config import DEFAULT_DIALECT, Dialect
-from .stage1_v3 import _scan_masked
+from .stage1_v3 import _as_carry, _scan_masked
 from .swar import _HI1, popcount32
 
 LANES = 128
 WORDS = 16  # packed int32 words per 512-byte row
-OUT_MODES = ("narrow", "wide_native")
+OUT_MODES = ("narrow", "wide", "wide_native")
 
 
-def _stage1_v4_plain(words: torch.Tensor, carry_in: int, dialect: Dialect,
+def _stage1_v4_plain(words: torch.Tensor, carry_in, dialect: Dialect,
                      count_nonascii: bool):
     """Plain PyTorch version of kernel B1 on any device: flat int32 byte
-    quads (multiple of 8 words) -> (packed flat int32, parity 0-d int32,
-    non-ASCII count 0-d int32, -1 when not counted)."""
+    quads (multiple of 8 words) and a carry (int or 0-d tensor) ->
+    (packed flat int32, parity 0-d int32, non-ASCII count 0-d int32, -1
+    when not counted)."""
     masked, parity = _scan_masked(words.view(-1, 8), carry_in, dialect)
     # masked holds only bit-7 flags; the multiply-gather by 0x204081
     # lifts bits 7/15/23/31 to 28..31 (no carries), so a logical >> 28
@@ -47,18 +48,20 @@ def _stage1_v4_plain(words: torch.Tensor, carry_in: int, dialect: Dialect,
     return packed, parity.to(torch.int32), nonascii
 
 
-def stage1_fused_v4(w2d: torch.Tensor, carry_in: int = 0,
+def stage1_fused_v4(w2d: torch.Tensor, carry_in=0,
                     dialect: Dialect = DEFAULT_DIALECT,
                     count_nonascii: bool = True, out_mode: str = "narrow",
                     emit_counts: bool = False, emit_prefix: bool = False):
     """(rows, 128) int32 byte quads, or the same stream as (rows/8, 1024)
-    for "wide_native" -> (packed, parity_out, nonascii_count).
+    for "wide" and "wide_native" -> (packed, parity_out, nonascii_count).
 
-    packed is (rows, 16) int32 for out_mode "narrow" and the (rows/8,
-    128) view of the same buffer for "wide_native". parity_out
-    is carry_in XOR the quote parity of the input; nonascii_count is the
-    number of bytes with bit 7 set, or -1 when count_nonascii is False.
-    Both are 0-d int32 tensors on the input's device."""
+    packed is (rows, 16) int32 for out_mode "narrow" and "wide", and the
+    (rows/8, 128) view of the same buffer for "wide_native" (the wide
+    modes need rows % 8 == 0). parity_out is carry_in XOR the quote
+    parity of the input; nonascii_count is the number of bytes with bit
+    7 set, or -1 when count_nonascii is False. Both are 0-d int32
+    tensors on the input's device. carry_in is an int or a 0-d integer
+    tensor, which the kernel reads on the device (no host sync)."""
     if emit_counts or emit_prefix:
         raise NotImplementedError(
             "emit_counts / emit_prefix are not ported yet (ROADMAP B1n)")
@@ -70,7 +73,8 @@ def stage1_fused_v4(w2d: torch.Tensor, carry_in: int = 0,
     lanes = w2d.shape[1]
     if lanes == 8 * LANES:
         if out_mode == "narrow":
-            raise ValueError("a (rows/8, 1024) input needs wide_native")
+            raise ValueError("a (rows/8, 1024) input needs out_mode 'wide' "
+                             "or 'wide_native'")
         rows = w2d.shape[0] * 8
     elif lanes == LANES:
         rows = w2d.shape[0]
@@ -78,9 +82,9 @@ def stage1_fused_v4(w2d: torch.Tensor, carry_in: int = 0,
         raise ValueError(f"expected 128 or 1024 lanes, got {lanes}")
     if rows == 0:
         raise ValueError("empty input")
-    if out_mode == "wide_native" and rows % 8:
-        raise ValueError(f"wide_native needs rows % 8 == 0, got {rows}")
-    carry = int(carry_in) & 1
+    if out_mode != "narrow" and rows % 8:
+        raise ValueError(f"{out_mode} needs rows % 8 == 0, got {rows}")
+    carry = _as_carry(carry_in, w2d.device)
     if w2d.device.type == "cuda":
         from .. import _kernels
 

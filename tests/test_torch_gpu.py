@@ -9,12 +9,22 @@ import numpy as np
 import pytest
 import torch
 
+import csv_simd_tpu_torch as ct
 from csv_simd_tpu_torch import Dialect, PackedDeviceTape, create_packed
-from csv_simd_tpu_torch import _kernels
+from csv_simd_tpu_torch import _kernels, golden
 from csv_simd_tpu_torch.offsetfree import _prefix_for_packed_xla, prefix_for_packed
+from csv_simd_tpu_torch.ops.stage1_pallas import _stage1_pallas_plain, stage1_pallas
+from csv_simd_tpu_torch.ops.stage1_v2 import stage1_pallas_v2, stage1_swar_jnp
+from csv_simd_tpu_torch.ops.stage1_v3 import (
+    stage1_fused,
+    stage1_fused_seq,
+    stage1_seq_xla,
+    stage1_swar_xla,
+    unpack_packed_host,
+)
 from csv_simd_tpu_torch.ops.stage1_v4 import _stage1_v4_plain, stage1_fused_v4
 
-from corpus import synthetic_wide_table
+from corpus import all_cases, synthetic_wide_table
 
 DIALECTS = ({}, dict(delimiter=0x3B, quote=0x27), dict(quote=0xA2))
 
@@ -128,3 +138,172 @@ def test_create_packed_on_card_matches_cpu(cuda_device, tmp_path):
     gpu.save(str(q))
     back = PackedDeviceTape.load(str(q), path.read_bytes(), device=cuda_device)
     assert torch.equal(back.cum_incl, gpu.cum_incl)
+
+
+def _same(got, want) -> None:
+    """Kernel outputs against plain outputs, bit for bit."""
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(torch.as_tensor(g).reshape(-1).cpu(),
+                           torch.as_tensor(w).reshape(-1).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,tile", [(8, 8), (64, 8), (64, 32), (512, 64),
+                                       (1024, 512), (4096, 512), (2056, 8),
+                                       (2048, 1024), (264, 24)])
+def test_fold_kernel_matches_plain(cuda_device, rows, tile):
+    arr = _bytes(rows, rows + tile)
+    w = torch.from_numpy(arr.view("<i4").reshape(rows, 128).copy())
+    w = w.to(cuda_device)
+    for kw in DIALECTS:
+        d = Dialect(**kw)
+        for carry in (0, 1):
+            before = _kernels.launch_counts()["stage1_fold"]
+            got = stage1_fused(w, carry, d, row_tile=tile)
+            assert _kernels.launch_counts()["stage1_fold"] == before + 1
+            _same(got, stage1_swar_xla(w, carry, d, row_tile=tile))
+            mask = unpack_packed_host(got[0].cpu().numpy(), arr.size, tile)
+            np.testing.assert_array_equal(
+                mask, golden.structural_mask(arr, d, carry_in=carry))
+
+
+@pytest.mark.gpu
+def test_fold_kernel_device_carry_chain(cuda_device):
+    """Three chunks cut inside quoted regions, the parity chained as a
+    device scalar, against one plain pass over the whole input."""
+    data = (b'a,"b\n' + b"x,y\n" * 3000 + b'",c\n') * 6
+    arr = np.frombuffer(data + b"\0" * (-len(data) % 12288), np.uint8)
+    w = torch.from_numpy(arr.view("<i4").reshape(-1, 128).copy())
+    w = w.to(cuda_device)
+    third = w.shape[0] // 3
+    parity = torch.ones((), dtype=torch.int32, device=cuda_device)
+    parts = []
+    for i in range(3):
+        packed, parity = stage1_fused(w[i * third:(i + 1) * third], parity,
+                                      row_tile=8)
+        parts.append(packed)
+    want, want_par = stage1_swar_xla(w, 1, row_tile=8)
+    _same((torch.cat(parts), parity), (want, want_par))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 24, 512, 2056])
+def test_v2_kernel_matches_plain(cuda_device, rows):
+    arr = _bytes(rows, 7 * rows)
+    w = torch.from_numpy(arr.view("<i4").reshape(rows, 128).copy())
+    w = w.to(cuda_device)
+    for kw in DIALECTS:
+        d = Dialect(**kw)
+        for carry in (0, 1):
+            before = _kernels.launch_counts()["stage1_v2"]
+            got = stage1_pallas_v2(w, carry, d, row_tile=8)
+            assert _kernels.launch_counts()["stage1_v2"] == before + 1
+            _same(got, stage1_swar_jnp(w, carry, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [32, 96, 1024, 8192])
+def test_v1_kernel_matches_plain(cuda_device, rows):
+    rng = np.random.default_rng(rows)
+    b = rng.choice(np.frombuffer(b'a",\n\r\xa2\x8a\'; ', np.uint8),
+                   size=(rows, 128))
+    t = torch.from_numpy(b).to(cuda_device)
+    for kw in DIALECTS:
+        d = Dialect(**kw)
+        for carry in (0, 1):
+            before = _kernels.launch_counts()["stage1_v1"]
+            got = stage1_pallas(t, carry, d)
+            assert _kernels.launch_counts()["stage1_v1"] == before + 1
+            _same(got, _stage1_pallas_plain(t, carry, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 512, 2056])
+def test_seq_kernel_matches_plain(cuda_device, rows):
+    arr = _bytes(rows, 3 * rows)
+    w = torch.from_numpy(arr.view("<i4").reshape(rows, 128).copy())
+    w = w.to(cuda_device)
+    for kw in DIALECTS:
+        d = Dialect(**kw)
+        for carry in (0, 1):
+            _same(stage1_fused_seq(w, carry, d, row_tile=8),
+                  stage1_seq_xla(w, carry, d))
+
+
+@pytest.mark.gpu
+def test_wide_mode_on_card(cuda_device):
+    arr = _bytes(64, 11)
+    w = torch.from_numpy(arr.view("<i4").reshape(64, 128).copy())
+    w = w.to(cuda_device)
+    for shape in ((64, 128), (8, 1024)):
+        got = stage1_fused_v4(w.view(*shape), 1, out_mode="wide")
+        assert got[0].shape == (64, 16)
+        _same(got, _stage1_v4_plain(w.view(-1), 1, Dialect(), True))
+
+
+@pytest.mark.gpu
+def test_pack_kernels_reject_bad_input(cuda_device):
+    w = torch.zeros((512, 128), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        _kernels.stage1_fold(w, 0, Dialect(), 12)
+    with pytest.raises(ValueError):
+        _kernels.stage1_fold(w, 0, Dialect(), 1 << 20)
+    with pytest.raises(ValueError):
+        _kernels.stage1_v2(w.to(torch.uint8), 0, Dialect())
+    with pytest.raises(ValueError):
+        _kernels.stage1_v1(w, 0, Dialect())
+    with pytest.raises(ValueError):
+        _kernels.stage1_v2(w.view(-1)[:1000], 0, Dialect())
+
+
+@pytest.mark.gpu
+def test_create_on_card_matches_golden(cuda_device, tmp_path):
+    cases = [c for c in all_cases() if c.data][:12]
+    for i, case in enumerate(cases):
+        arr = np.frombuffer(case.data, np.uint8)
+        try:
+            want = ct.create_from_bytes(case.data, backend="golden")
+        except ct.InvalidCsvFormat:
+            with pytest.raises(ct.InvalidCsvFormat):
+                ct.create_from_bytes(case.data, backend="cuda",
+                                     device=cuda_device)
+            continue
+        path = tmp_path / f"case{i}.csv"
+        path.write_bytes(case.data)
+        before = _kernels.launch_counts()["stage1_fold"]
+        got = ct.create(str(path), backend="cuda", device=cuda_device)
+        assert _kernels.launch_counts()["stage1_fold"] == before + 1
+        np.testing.assert_array_equal(got.index, want.index)
+        np.testing.assert_array_equal(
+            got.index, golden.structural_index(arr))
+
+
+@pytest.mark.gpu
+def test_offsets_route_on_card(cuda_device, tmp_path):
+    data = synthetic_wide_table(3 << 20)
+    path = tmp_path / "wide.csv"
+    path.write_bytes(data)
+    want = golden.structural_index(np.frombuffer(data, np.uint8))
+    tape = ct.create(str(path), device=cuda_device)
+    np.testing.assert_array_equal(tape.index, want)
+    streamed = ct.create_streaming(str(path), chunk_bytes=1 << 20,
+                                   device=cuda_device)
+    np.testing.assert_array_equal(streamed.index, want)
+    np.testing.assert_array_equal(
+        ct.build_index(data, backend="torch", device=cuda_device), want)
+    offs, count = ct.build_index_device(data, device=cuda_device)
+    assert count == want.size - 1
+    np.testing.assert_array_equal(offs.cpu().numpy(), want)
+    words, n, par = ct.index.stage1_words(data, device=cuda_device)
+    plain = ct.index.stage1_words(data, backend="torch", device=cuda_device)
+    np.testing.assert_array_equal(words, plain[0])
+    assert (n, par) == plain[1:]
+    dt = ct.DeviceTape.from_tape(tape, device=cuda_device)
+    rng = np.random.default_rng(1)
+    recs = rng.integers(0, tape.record_cnt - 1, 2000)
+    flds = rng.integers(0, 16, 2000)
+    out, lengths, valid = dt.gather_fields(recs, flds)
+    assert bool(valid.all())
+    got = dt.to_host_lists(out, lengths, valid)
+    assert got == [tape.seek_field(int(r), int(f)) for r, f in zip(recs, flds)]

@@ -29,6 +29,17 @@ from csv_simd_tpu_torch.ops.stage1_v2 import pad_to_words
 from corpus import basic_cases, synthetic_wide_table
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite runs several test processes side by side on the same
+    cores, where torch's thread pool only contends."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _random_words(rows: int, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.integers(-2**31, 2**31, (rows, 16),

@@ -24,6 +24,17 @@ from csv_simd_tpu_torch.ops.stage1_v4 import stage1_fused_v4
 
 from corpus import all_cases
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are small,
+    and the suite runs several test processes side by side on the same
+    cores, where torch's thread pool only contends."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 DIALECTS = {
     "default": {},
     "semicolon_apostrophe": dict(delimiter=0x3B, quote=0x27),
@@ -99,6 +110,28 @@ def test_stage1_multi_tile_quoted_span(carry):
     arr = np.frombuffer(data, dtype=np.uint8)
     assert pad_to_words(arr).shape[0] > 512
     _check_all(arr, {}, carry, True)
+
+
+@pytest.mark.parametrize("lanes", [128, 1024])
+@pytest.mark.parametrize("seed", range(3))
+def test_stage1_wide_mode_matches_jax(lanes, seed):
+    """out_mode="wide": a (rows, 128) or (rows/8, 1024) input gives the
+    (rows, 16) words, as the JAX function does in interpret mode."""
+    rng = np.random.default_rng(20 + seed)
+    alphabet = np.frombuffer(b'ab"",\n\rx,z":; \t\'\xc3\xa9\xa2', np.uint8)
+    arr = rng.choice(alphabet, size=int(rng.integers(1, 40_000)))
+    w = pad_to_words(arr).reshape(-1, lanes)
+    for kw in DIALECTS.values():
+        got, tpar, tna = stage1_fused_v4(
+            torch.from_numpy(w.copy()), seed & 1, Dialect(**kw),
+            out_mode="wide")
+        want, jpar, jna = jstage1_fused_v4(
+            jnp.asarray(w), seed & 1, JDialect(**kw), interpret=True,
+            out_mode="wide")
+        assert got.shape == np.asarray(want).shape == (w.size // 128, 16)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert int(tpar) == int(jpar)
+        assert int(tna) == int(jna)
 
 
 @pytest.mark.parametrize(
