@@ -19,7 +19,10 @@ Phases, each of which fails the run on any error:
    over the same inputs, carries and dialects, each unpacked with its
    own inverse and held against golden.structural_mask, B3 with a
    device-scalar carry too; at 64 MiB B3 against golden and against B1's
-   words, with the carry chained on the card over four chunks;
+   words, with the carry chained on the card over four chunks; B1n's
+   row counts and prefix (narrow, and the prefix wide) over the corpus
+   and fuzz inputs; and each probe kernel (stream, ALU, ablation) with
+   its side words against its plain version at several sizes;
 3. the offsets-free path at 1 GiB (the wide-table configuration):
    create_packed on a 1 GiB CSV made of the data rows of one 64 MiB
    synthetic_wide_table block repeated after its header, a warm-up batch
@@ -34,7 +37,22 @@ Phases, each of which fails the run on any error:
    once a chunk, the carry chained on the card); build_index_device on
    the block; and the entry points of B4, B5 and B6 on the block;
 5. kernel and plain times on the card at the paths' shapes, and the
-   parts of create at 1 GiB.
+   parts of create at 1 GiB;
+6. the measurement path (csv_simd_tpu_torch.tools, each tool's run as
+   `python -m csv_simd_tpu_torch.tools.<name>` runs it, after its gate in
+   phase 2, and after its check, which holds every kernel it then times
+   against the plain version on the timed input): the fused-prefix A/B
+   of B1n (scan, build = B1 + B2, buildf) at 64 MiB and 1 GiB, with
+   buildf's prefix held against B2's at 1 GiB; the memory-stream probe
+   in every mode and the stage ablation at 64 MiB and 1 GiB; the int32
+   ALU rate per mix at 64 MiB; B1's and B3's GB/s against the stream
+   probe's wide ceiling. Probe kernels are timed from CUDA graphs (the
+   kernels alone) and from eager launches;
+7. a torch.profiler trace (utils.profiling.device_trace) of a warm
+   create_packed and a warm create at 1 GiB: the five device ops that
+   took the most time and the device-busy share of the traced window.
+   The trace must name B1's and B3's kernels. A second trace gives each
+   probe kernel's device time a launch at 64 MiB.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -48,7 +66,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -68,31 +85,9 @@ DEVICE = torch.device("cuda", 0)
 DIALECTS = ({}, dict(delimiter=0x3B, quote=0x27), dict(quote=0xA2))
 
 
-def _card_line() -> str:
-    r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return r.stdout.strip().splitlines()[0]
-
-
-def _cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of fn on the card, by CUDA events over
-    `reps` calls after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 GATED = ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
-         "stage1_v2", "stage1_v1")
+         "stage1_v2", "stage1_v1", "stage1_v4_emit", "dma_probe",
+         "dma_probe2.write", "dma_probe2.read", "vpu_roofline", "ablate")
 
 
 class Gate:
@@ -104,17 +99,18 @@ class Gate:
 
     def same(self, name: str, got: torch.Tensor, want: torch.Tensor,
              what: str) -> None:
-        got, want = got.reshape(-1), want.reshape(-1)
-        if got.shape != want.shape:
-            raise AssertionError(f"{name} {what}: shape {tuple(got.shape)} "
-                                 f"!= {tuple(want.shape)}")
-        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        self.max_abs_err[name] = max(self.max_abs_err[name], err)
-        self.checks[name] += 1
-        if err:
-            bad = int((got != want).sum())
-            raise AssertionError(f"{name} {what}: {bad} of {got.numel()} "
-                                 f"words differ from the plain version")
+        """Raise unless got equals want exactly (tools._common.same)."""
+        from csv_simd_tpu_torch.tools._common import same
+
+        self.record(name, {"checks": 1,
+                           "max_abs_err": same(got, want, f"{name} {what}")})
+
+    def record(self, name: str, result: dict) -> None:
+        """A tool's own gate result ({checks, max_abs_err}; it raised on
+        any difference)."""
+        self.max_abs_err[name] = max(self.max_abs_err[name],
+                                     result["max_abs_err"])
+        self.checks[name] += result["checks"]
 
 
 def _unpack(packed: torch.Tensor, n: int) -> np.ndarray:
@@ -127,6 +123,7 @@ def gate_stage1(gate: Gate, device, corpus_cases, golden) -> None:
     from csv_simd_tpu_torch import Dialect
     from csv_simd_tpu_torch.ops.stage1_v2 import pad_to_words
     from csv_simd_tpu_torch.ops.stage1_v4 import (
+        _row_emits_plain,
         _stage1_v4_plain,
         stage1_fused_v4,
     )
@@ -136,6 +133,21 @@ def gate_stage1(gate: Gate, device, corpus_cases, golden) -> None:
         for kw in DIALECTS:
             d = Dialect(**kw)
             for carry in (0, 1):
+                # B1n: counts and prefix narrow, the prefix wide
+                tag = f"{what} {kw} carry={carry}"
+                got = stage1_fused_v4(words, carry, d, emit_counts=True,
+                                      emit_prefix=True)
+                counts, prefix = _row_emits_plain(got[0])
+                gate.same("stage1_v4_emit", got[3], counts, f"{tag} counts")
+                gate.same("stage1_v4_emit", got[4], prefix, f"{tag} prefix")
+                gate.same("stage1_v4_emit", got[0], _stage1_v4_plain(
+                    flat, carry, d, True)[0], f"{tag} words")
+                if words.shape[0] % 8 == 0:
+                    wide = stage1_fused_v4(words.view(-1, 1024), carry, d,
+                                           out_mode="wide_native",
+                                           emit_prefix=True)
+                    gate.same("stage1_v4_emit", wide[3], prefix,
+                              f"{tag} wide prefix")
                 for cn in (True, False):
                     tag = f"{what} {kw} carry={carry} count_nonascii={cn}"
                     got = stage1_fused_v4(words, carry, d, count_nonascii=cn,
@@ -354,6 +366,76 @@ def gate_pack_block(gate: Gate, device, block: bytes, golden) -> dict:
         device), "arr": arr, "mask": want}
 
 
+def gate_probes(gate: Gate, device) -> None:
+    """Each probe kernel, outputs and side words, against its plain
+    version at several sizes and carries (the tools' own gates)."""
+    from csv_simd_tpu_torch.tools import ablate, dma_probe, vpu_roofline
+
+    stream = dma_probe.gate(device)
+    for name in ("dma_probe", "dma_probe2.write", "dma_probe2.read"):
+        gate.record(name, stream)
+    gate.record("vpu_roofline", vpu_roofline.gate(device))
+    gate.record("ablate", ablate.gate(device))
+
+
+def _device_ops(trace_path: str) -> tuple:
+    """({device op name: (ms, launches)}, the device-busy share of the
+    traced window) from a torch.profiler Chrome trace."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise AssertionError("the trace holds no device activity")
+    per = {}
+    for e in device:
+        ms, n = per.get(e["name"], (0.0, 0))
+        per[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    return per, busy / (t1 - t0)
+
+
+def _short(name: str) -> str:
+    """A kernel's demangled name without namespace, return type and
+    parameters: `ablate_pass<4>`."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    return name.split("(")[0]
+
+
+def probe_trace(words: torch.Tensor) -> dict:
+    """{kernel: (mean device ms a launch, launches)} from a torch.profiler
+    trace of five calls of every stream and ablation mode (tile 512) and
+    two of every ALU op count and mix on words."""
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.tools import ablate, dma_probe, vpu_roofline
+    from csv_simd_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profiling.device_trace(trace_dir):
+            for _ in range(5):
+                for mode in dma_probe.WRITE_MODES:
+                    dma_probe.mk_write(words, mode, 1)
+                dma_probe.mk_read(words, 1)
+                for mode in ablate.MODES:
+                    ablate.mk(words, mode, 512, 1)
+            for _ in range(2):
+                for n_ops in _kernels.probe_alu_op_counts():
+                    for mix in vpu_roofline.MIXES:
+                        vpu_roofline.probe(words, n_ops, mix, 1)
+        per, _busy = _device_ops(os.path.join(trace_dir,
+                                              profiling.TRACE_FILE))
+    return {_short(name): (ms / n, n) for name, (ms, n) in per.items()}
+
+
 def write_big_csv(block: bytes) -> tuple:
     """The 1 GiB file: the block's header, then its data rows REPEATS
     times. Cached in the temporary directory by size."""
@@ -510,6 +592,15 @@ def driven(fn, *args, **kw) -> tuple:
     return out, _kernels.launch_counts()
 
 
+def _sum(per_size: dict) -> dict:
+    """Launch counts of several driven runs, added."""
+    out = {}
+    for launches in per_size.values():
+        for k, v in launches.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def need(launches: dict, name: str, at_least: int, what: str) -> None:
     if launches[name] < at_least:
         raise AssertionError(f"{what}: kernel {name} launched "
@@ -554,13 +645,24 @@ def main() -> int:
         stage1_swar_xla,
     )
     from csv_simd_tpu_torch.ops.stage1_v4 import (
+        _row_emits_plain,
         _stage1_v4_plain,
         stage1_fused_v4,
     )
+    from csv_simd_tpu_torch.tools import (
+        ablate,
+        dma_probe,
+        vpu_roofline,
+        widestore_probe,
+    )
+    from csv_simd_tpu_torch.tools._common import card as card_info
+    from csv_simd_tpu_torch.tools._common import cuda_ms, random_words
+    from csv_simd_tpu_torch.utils import profiling
     from corpus import all_cases, synthetic_wide_table
 
+    t_run = time.perf_counter()
     device = DEVICE
-    card = _card_line()
+    card = card_info()["card"]
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -587,6 +689,7 @@ def main() -> int:
               for c in cases] + fuzz_arrays()
     gate_pack(gate, device, arrays, golden)
     blk = gate_pack_block(gate, device, block, golden)
+    gate_probes(gate, device)
     print("gate: " + ", ".join(f"{k} {v}" for k, v in gate.checks.items())
           + f" comparisons, all bit-identical "
           f"({time.perf_counter() - t0:.1f} s)")
@@ -709,27 +812,91 @@ def main() -> int:
     gate.same("stage1_fold", got[1], want[1], "1 GiB parity")
     del got, want
     ms = {}
-    ms["stage1_v4"] = _cuda_ms(lambda: stage1_fused_v4(
+    ms["stage1_v4"] = cuda_ms(lambda: stage1_fused_v4(
         words.view(-1, 1024), 0, d, count_nonascii=False,
         out_mode="wide_native"), 20)
-    ms["stage1_v4_plain"] = _cuda_ms(
+    ms["stage1_v4_plain"] = cuda_ms(
         lambda: _stage1_v4_plain(words, 0, d, False), 3)
-    ms["row_prefix"] = _cuda_ms(lambda: prefix_for_packed(packed), 50)
-    ms["row_prefix_plain"] = _cuda_ms(
+    ms["row_prefix"] = cuda_ms(lambda: prefix_for_packed(packed), 50)
+    ms["row_prefix_plain"] = cuda_ms(
         lambda: _prefix_for_packed_xla(packed), 10)
-    ms["stage1_fold"] = _cuda_ms(lambda: stage1_fused(w2d, 0), 20)
-    ms["stage1_fold_plain"] = _cuda_ms(lambda: stage1_swar_xla(w2d, 0), 3)
+    ms["stage1_fold"] = cuda_ms(lambda: stage1_fused(w2d, 0), 20)
+    ms["stage1_fold_plain"] = cuda_ms(lambda: stage1_swar_xla(w2d, 0), 3)
     bw, bb = blk["words"], blk["bytes"]
-    ms["stage1_seq"] = _cuda_ms(lambda: stage1_fused_seq(bw, 0), 20)
-    ms["stage1_seq_plain"] = _cuda_ms(lambda: stage1_seq_xla(bw, 0), 5)
-    ms["stage1_v2"] = _cuda_ms(lambda: stage1_pallas_v2(bw, 0), 20)
-    ms["stage1_v2_plain"] = _cuda_ms(lambda: stage1_swar_jnp(bw, 0), 5)
-    ms["stage1_v1"] = _cuda_ms(lambda: stage1_pallas(bb, 0), 20)
-    ms["stage1_v1_plain"] = _cuda_ms(
+    ms["stage1_seq"] = cuda_ms(lambda: stage1_fused_seq(bw, 0), 20)
+    ms["stage1_seq_plain"] = cuda_ms(lambda: stage1_seq_xla(bw, 0), 5)
+    ms["stage1_v2"] = cuda_ms(lambda: stage1_pallas_v2(bw, 0), 20)
+    ms["stage1_v2_plain"] = cuda_ms(lambda: stage1_swar_jnp(bw, 0), 5)
+    ms["stage1_v1"] = cuda_ms(lambda: stage1_pallas(bb, 0), 20)
+    ms["stage1_v1_plain"] = cuda_ms(
         lambda: _stage1_pallas_plain(bb, 0, d), 5)
-    del words, w2d
+
+    # phase 6: the measurement path. Each tool's check holds its kernels
+    # against their plain versions on the input it then times (recorded
+    # in the gate); each run has the launch counts set to 0 just before
+    # it and read just after.
+    got = stage1_fused_v4(words.view(-1, 1024), 0, d, count_nonascii=False,
+                          out_mode="wide_native", emit_prefix=True)
+    gate.same("stage1_v4_emit", got[0], packed, "1 GiB words vs B1's")
+    gate.same("stage1_v4_emit", got[3], prefix_for_packed(packed),
+              "1 GiB fused prefix vs B2's")
+    del got
+    ab, l_ab = {}, {}
+    for at, w in (("64 MiB", bw), ("1 GiB", w2d)):
+        gate.record("stage1_v4_emit", widestore_probe.check(w))
+        ab[at], l_ab[at] = driven(widestore_probe.run, w)
+        need(l_ab[at], "stage1_v4_emit", 1,
+             f"widestore_probe.run at {at}")
+    ms["stage1_v4_emit"] = ab["1 GiB"]["buildf"]["ms"]
+    ms["stage1_v4_emit_plain"] = cuda_ms(lambda: _row_emits_plain(
+        _stage1_v4_plain(words, 0, d, False)[0]), 2)
+    stream, l_dma1, l_dma2w, l_dma2r = {}, {}, {}, {}
+    abl, l_abl = {}, {}
+    rnd = {"64 MiB": random_words(BLOCK_BYTES // 512, device, 64),
+           "1 GiB": random_words(16 * BLOCK_BYTES // 512, device, 1024)}
+    for at, w in rnd.items():
+        gate.record("dma_probe", dma_probe.check_write(
+            w, dma_probe.DMA_PROBE_MODES))
+        t1, l_dma1[at] = driven(dma_probe.run_write, w,
+                                dma_probe.DMA_PROBE_MODES)
+        need(l_dma1[at], "probe_stream_write", 2, f"dma_probe at {at}")
+        gate.record("dma_probe2.write", dma_probe.check_write(w))
+        t2, l_dma2w[at] = driven(dma_probe.run_write, w)
+        need(l_dma2w[at], "probe_stream_write", 4,
+             f"dma_probe2 write at {at}")
+        gate.record("dma_probe2.read", dma_probe.check_read(w))
+        rd, l_dma2r[at] = driven(dma_probe.run_read, w)
+        need(l_dma2r[at], "probe_stream_read", 1,
+             f"dma_probe2 read at {at}")
+        stream[at] = {"dma_probe": t1, "dma_probe2": {**t2, "read": rd}}
+        gate.record("ablate", ablate.check(w))
+        abl[at], l_abl[at] = driven(ablate.run, w)
+        need(l_abl[at], "probe_ablate", len(ablate.MODES),
+             f"ablate.run at {at}")
+    big = stream["1 GiB"]
+    ms["dma_probe"] = big["dma_probe"]["narrow"]["ms"]
+    ms["dma_probe_plain"] = big["dma_probe"]["narrow"]["plain_ms"]
+    ms["dma_probe2.write"] = big["dma_probe2"]["tall8"]["ms"]
+    ms["dma_probe2.write_plain"] = big["dma_probe2"]["tall8"]["plain_ms"]
+    ms["dma_probe2.read"] = big["dma_probe2"]["read"]["ms"]
+    ms["dma_probe2.read_plain"] = big["dma_probe2"]["read"]["plain_ms"]
+    ms["ablate"] = abl["64 MiB"]["full:512"]["ms"]
+    ms["ablate_plain"] = abl["64 MiB"]["full:512"]["plain_ms"]
+    del rnd["1 GiB"]
+    gate.record("vpu_roofline", vpu_roofline.check(rnd["64 MiB"]))
+    alu, l_vpu = driven(vpu_roofline.run, rnd["64 MiB"])
+    need(l_vpu, "probe_alu", 3, "vpu_roofline.run")
+    hi = alu["alu"]["ops"][1]
+    ms["vpu_roofline"] = alu["alu"]["ms"][hi]
+    ms["vpu_roofline_plain"] = vpu_roofline.plain_ms(rnd["64 MiB"], hi, "alu",
+                                                     1)
+    del rnd, w, words, w2d
     torch.cuda.empty_cache()
 
+    # the first create_packed after CUDA graphs were captured in the
+    # process takes about 0.45 s more (measured on an H100, cause not
+    # found); one untimed call keeps that out of the warm time
+    csv_simd_tpu_torch.create_packed(path, device=device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     csv_simd_tpu_torch.create_packed(path, device=device)
@@ -766,6 +933,25 @@ def main() -> int:
     check_index(split_tape.index, index, rows_len)
     del w2d, fold, host, offsets, idx, split_tape
 
+    # phase 7: a trace of a warm create_packed and a warm create
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profiling.device_trace(trace_dir):
+            with profiling.named("create_packed"):
+                csv_simd_tpu_torch.create_packed(path, device=device)
+            with profiling.named("create"):
+                csv_simd_tpu_torch.create(path, backend="cuda",
+                                          device=device)
+        per, busy = _device_ops(os.path.join(trace_dir,
+                                             profiling.TRACE_FILE))
+    top_ops = sorted(per.items(), key=lambda kv: -kv[1][0])[:5]
+    for kernel, what in (("mask_pack", "B1"), ("pack_fold", "B3")):
+        if not any(kernel in n for n in per):
+            raise AssertionError(f"the trace names no {what} kernel "
+                                 f"({kernel})")
+    # the probes' kernels in a second trace, at 64 MiB: device time a
+    # launch by name, beside phase 6's graph and eager times
+    probe_ops = probe_trace(random_words(BLOCK_BYTES // 512, device, 64))
+
     gb = padded_rows(size) * ROW_BYTES / 1e9
     print(f"times on {card}:")
     for name in ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
@@ -789,6 +975,49 @@ def main() -> int:
           f"{dt_lookups:.0f} lookups/s; PackedDeviceTape "
           f"{res['lookups_per_s']:.0f} lookups/s")
 
+    # phase 6 and 7 results, one line each, with the card
+    for at in ("64 MiB", "1 GiB"):
+        print(f"fused prefix A/B at {at} on {card}: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms ({v['gbps']:.1f} GB/s)"
+            for k, v in ab[at].items()))
+    for at, res in stream.items():
+        print(f"stream at {at} on {card} (GB/s of input read, CUDA graph; "
+              "eager ms / graph ms): " + ", ".join(
+                  f"{m} {v['gbps']:.1f} ({v['eager_ms'] / v['ms']:.3f})"
+                  for m, v in res["dma_probe2"].items())
+              + "; dma_probe " + ", ".join(
+                  f"{m} {v['gbps']:.1f}" for m, v in res["dma_probe"].items()))
+    for mix, v in alu.items():
+        print(f"int32 ops on {card}, {mix}: {v['t_ops_per_s']:.3f} T ops/s "
+              f"between {v['ops'][0]} and {v['ops'][1]} ops (graph ms by "
+              "ops at 64 MiB: " + ", ".join(
+                  f"{n} {t:.4f}" for n, t in v["ms"].items())
+              + "; eager: " + ", ".join(
+                  f"{n} {t:.4f}" for n, t in v["eager_ms"].items()) + ")")
+    for at, res in abl.items():
+        print(f"ablation at {at} on {card} (GB/s of input, CUDA graph; "
+              "graph ms / eager ms): " + ", ".join(
+                  f"{k} {v['gbps']:.1f} ({v['ms']:.4f} / "
+                  f"{v['eager_ms']:.4f})" for k, v in res.items()))
+    ceiling = big["dma_probe2"]["wide"]["gbps"]
+    b1_gbps = gb / ms["stage1_v4"] * 1e3
+    b3_gbps = gb / ms["stage1_fold"] * 1e3
+    print(f"against the stream's wide ceiling at 1 GiB on {card} "
+          f"({ceiling:.1f} GB/s): B1 {b1_gbps:.1f} GB/s "
+          f"({b1_gbps / ceiling:.1%}), B3 {b3_gbps:.1f} GB/s "
+          f"({b3_gbps / ceiling:.1%})")
+    print(f"trace of a warm create_packed + create at 1 GiB on {card}: "
+          f"device busy {busy:.2%} of the traced window; top device ops: "
+          + "; ".join(f"{name[:60]} {t:.3f} ms x{n}"
+                      for name, (t, n) in top_ops))
+    print(f"probe kernels in a trace at 64 MiB on {card} (device ms a "
+          "launch): " + "; ".join(f"{name} {t:.4f} x{n}" for name, (t, n)
+                                  in sorted(probe_ops.items())))
+
+    print("gate with the timed inputs: " + ", ".join(
+        f"{k} {v}" for k, v in gate.checks.items())
+        + f" comparisons, all bit-identical; whole run "
+        f"{time.perf_counter() - t_run:.1f} s")
     if any(sys.modules.get(m) is not None for m in ("jax", "csv_simd_tpu")):
         raise AssertionError("the port imported JAX or the JAX package")
     src = "csv_simd_tpu_torch/csrc/"
@@ -811,6 +1040,21 @@ def main() -> int:
         ("stage1_pallas", "cuda", "stage1_pack.cu",
          "csv_simd_tpu/ops/stage1_pallas.py:73", "stage1_v1", l_v1,
          "stage1_v1"),
+        ("stage1_fused_v4[emit]", "cuda", "stage1_v4.cu",
+         "csv_simd_tpu/ops/stage1_v4.py:707", "stage1_v4_emit", _sum(l_ab),
+         "stage1_v4_emit"),
+        ("dma_probe", "cuda", "probe_stream.cu", "tools/dma_probe.py:47",
+         "probe_stream_write", _sum(l_dma1), "dma_probe"),
+        ("dma_probe2.write", "cuda", "probe_stream.cu",
+         "tools/dma_probe2.py:62", "probe_stream_write", _sum(l_dma2w),
+         "dma_probe2.write"),
+        ("dma_probe2.read", "cuda", "probe_stream.cu",
+         "tools/dma_probe2.py:90", "probe_stream_read", _sum(l_dma2r),
+         "dma_probe2.read"),
+        ("vpu_roofline", "cuda", "probe_alu.cu", "tools/vpu_roofline.py:95",
+         "probe_alu", l_vpu, "vpu_roofline"),
+        ("ablate", "cuda", "probe_ablate.cu", "tools/ablate.py:149",
+         "probe_ablate", _sum(l_abl), "ablate"),
     )
     kernels = [
         {"name": name, "route": route_, "source": src + source,

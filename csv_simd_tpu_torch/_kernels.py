@@ -36,12 +36,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # launches per kernel wrapper, for showing that a run went through them
-LAUNCHES = {"stage1_v4": 0, "row_prefix": 0, "stage1_fold": 0,
-            "stage1_v2": 0, "stage1_v1": 0}
+LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
+            "stage1_fold": 0, "stage1_v2": 0, "stage1_v1": 0,
+            "probe_stream_write": 0, "probe_stream_read": 0, "probe_alu": 0,
+            "probe_ablate": 0}
 # layout codes of csrc/stage1_pack.cu
 _FOLD, _V2, _V1 = 0, 1, 2
 
 _lib = None
+_alu_op_counts = None
+_alu_const_arrays = {}
 
 
 def reset_launch_counts() -> None:
@@ -96,17 +100,15 @@ def build(verbose: bool = False) -> dict:
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        log = []
-        failed = None
+        log, failed = [], []
         for cmd, proc in procs:
             text = proc.communicate()[0]
             log.append(text)
-            if proc.returncode != 0 and failed is None:
-                failed = (cmd, proc.returncode, text)
-        if failed is not None:
-            cmd, rc, text = failed
-            raise RuntimeError(
-                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
         lib = os.path.join(tmp, "lib.so")
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         r = subprocess.run(cmd, capture_output=True, text=True)
@@ -127,8 +129,10 @@ def _library():
         lib.csv_stage1_v4_chunks.argtypes = [ll]
         lib.csv_stage1_v4_chunks.restype = ll
         lib.csv_stage1_v4.argtypes = [vp, ll, vp, vp, vp, vp, vp, i, i,
-                                      i, i, i, i, i, i, vp]
+                                      i, i, i, i, i, i, vp, vp, vp, vp]
         lib.csv_stage1_v4.restype = i
+        lib.csv_stage1_v4_prefix_scratch.argtypes = [ll]
+        lib.csv_stage1_v4_prefix_scratch.restype = ll
         lib.csv_stage1_fold_max_tile.argtypes = []
         lib.csv_stage1_fold_max_tile.restype = i
         lib.csv_stage1_pack_chunks.argtypes = [i, ll, i]
@@ -140,6 +144,22 @@ def _library():
         lib.csv_row_prefix_scratch.restype = ll
         lib.csv_row_prefix.argtypes = [vp, ll, vp, vp, vp]
         lib.csv_row_prefix.restype = i
+        lib.csv_probe_stream_write.argtypes = [i, vp, ll, vp, i, vp, vp, vp]
+        lib.csv_probe_stream_write.restype = i
+        lib.csv_probe_stream_read.argtypes = [vp, ll, vp, i, vp, vp, vp]
+        lib.csv_probe_stream_read.restype = i
+        lib.csv_probe_alu_op_count.argtypes = [i]
+        lib.csv_probe_alu_op_count.restype = i
+        lib.csv_probe_alu.argtypes = [vp, ll, ctypes.POINTER(i), i, i, vp, i,
+                                      vp, i, vp]
+        lib.csv_probe_alu.restype = i
+        lib.csv_probe_ablate_max_tile.argtypes = []
+        lib.csv_probe_ablate_max_tile.restype = i
+        lib.csv_probe_ablate_chunks.argtypes = [ll, i]
+        lib.csv_probe_ablate_chunks.restype = ll
+        lib.csv_probe_ablate.argtypes = [i, vp, ll, i, vp, i, vp, vp, vp, vp,
+                                         vp]
+        lib.csv_probe_ablate.restype = i
         lib.csv_cuda_error_string.argtypes = [i]
         lib.csv_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -186,19 +206,33 @@ def _carry(carry_in, dev: torch.device) -> tuple:
     return None, int(carry_in) & 1, None
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def stage1_v4(words: torch.Tensor, carry_in, dialect,
-              count_nonascii: bool):
+              count_nonascii: bool, emit_counts: bool = False,
+              emit_prefix: bool = False):
     """Kernel B1 on CUDA int32 byte quads (a whole number of 32-byte
     words) -> (packed flat int32, parity 0-d int32, non-ASCII count 0-d
-    int32, -1 when not counted)."""
+    int32 or -1 when not counted, row counts, row prefix). B1n: with
+    emit_counts / emit_prefix (whole 512-byte rows) the last two are the
+    (rows,) int32 structural count of each row and their inclusive
+    prefix; otherwise None. A launch with either emit counts under
+    "stage1_v4_emit", one without under "stage1_v4"."""
     _check_words(words, "stage1_v4")
     n_bytes = words.numel() * 4
     if n_bytes == 0 or n_bytes % 32:
         raise ValueError(f"stage1_v4: {n_bytes} bytes is not a positive "
                          "multiple of 32")
+    emit = emit_counts or emit_prefix
+    if emit and n_bytes % 512:
+        raise ValueError(f"stage1_v4: row counts need whole 512-byte rows, "
+                         f"got {n_bytes} bytes")
     structural = _structural(dialect, "stage1_v4")
     lib = _library()
     dev = words.device
+    rows = n_bytes // 512
     with torch.cuda.device(dev):
         carry_ptr, carry_int, _keep = _carry(carry_in, dev)
         n_chunks = lib.csv_stage1_v4_chunks(n_bytes)
@@ -206,14 +240,23 @@ def stage1_v4(words: torch.Tensor, carry_in, dialect,
         scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
         scalars = torch.empty(2, dtype=torch.int32, device=dev)
         counter = torch.empty(1, dtype=torch.int64, device=dev)
+        counts = prefix = prefix_scratch = None
+        if emit_counts:
+            counts = torch.empty(rows, dtype=torch.int32, device=dev)
+        if emit_prefix:
+            prefix = torch.empty(rows, dtype=torch.int32, device=dev)
+            prefix_scratch = torch.empty(
+                lib.csv_stage1_v4_prefix_scratch(n_bytes), dtype=torch.int32,
+                device=dev)
         err = lib.csv_stage1_v4(
             words.data_ptr(), n_bytes, out.data_ptr(), scratch.data_ptr(),
             scalars.data_ptr(), counter.data_ptr(), carry_ptr, carry_int,
             int(bool(count_nonascii)), dialect.quote, *structural,
+            _ptr(counts), _ptr(prefix), _ptr(prefix_scratch),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "stage1_v4")
-    LAUNCHES["stage1_v4"] += 1
-    return out, scalars[0], scalars[1]
+    LAUNCHES["stage1_v4_emit" if emit else "stage1_v4"] += 1
+    return out, scalars[0], scalars[1], counts, prefix
 
 
 def _stage1_pack(layout: int, name: str, data: torch.Tensor, carry_in,
@@ -300,3 +343,161 @@ def row_prefix(packed: torch.Tensor) -> torch.Tensor:
     _raise_on(err, "row_prefix")
     LAUNCHES["row_prefix"] += 1
     return out
+
+
+# modes of csrc/probe_stream.cu's write kernel and csrc/probe_ablate.cu
+STREAM_WRITE_MODES = ("narrow", "tall2", "tall8", "wide")
+ABLATE_MODES = ("dma_only", "classify_only", "inword", "noscan", "full",
+                "v3", "v3_foldonly", "v3_mmonly")
+
+
+def check_rows128(words: torch.Tensor, what: str, align: int) -> int:
+    """Raise unless words is (rows, 128) int32 with rows a positive
+    multiple of align, on any device (the probes' input); returns rows."""
+    if words.dtype != torch.int32 or words.dim() != 2 or \
+            words.shape[1] != 128:
+        raise ValueError(f"{what}: expected (rows, 128) int32, got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    rows = words.shape[0]
+    if rows == 0 or rows % align:
+        raise ValueError(f"{what}: rows must be a positive multiple of "
+                         f"{align}, got {rows}")
+    return rows
+
+
+def _check_rows128(words: torch.Tensor, what: str, align: int) -> int:
+    _check_words(words, what)
+    return check_rows128(words, what, align)
+
+
+def probe_stream_write(words: torch.Tensor, mode: str, carry_in):
+    """csrc/probe_stream.cu's write kernel on CUDA (rows, 128) int32, rows
+    % 512 == 0 -> (out (rows, 16) int32 for narrow/tall2/tall8, (rows/8,
+    128) for wide; side (rows/512,) int32, the XOR of each 512-row
+    block)."""
+    rows = _check_rows128(words, "probe_stream_write", 512)
+    if mode not in STREAM_WRITE_MODES:
+        raise ValueError(f"probe_stream_write: mode must be one of "
+                         f"{STREAM_WRITE_MODES}, got {mode!r}")
+    lib = _library()
+    dev = words.device
+    with torch.cuda.device(dev):
+        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
+        shape = (rows // 8, 128) if mode == "wide" else (rows, 16)
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+        side = torch.empty(rows // 512, dtype=torch.int32, device=dev)
+        err = lib.csv_probe_stream_write(
+            STREAM_WRITE_MODES.index(mode), words.data_ptr(), rows,
+            carry_ptr, carry_int, out.data_ptr(), side.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_stream_write")
+    LAUNCHES["probe_stream_write"] += 1
+    return out, side
+
+
+def probe_stream_read(words: torch.Tensor, carry_in):
+    """csrc/probe_stream.cu's read kernel on CUDA (R, 128) int32, R % 64
+    == 0 -> (0-d int32: the wrapping sum of the last (64, 128) block plus
+    the carry; side (R/64,) int32, each block's wrapping sum)."""
+    rows = _check_rows128(words, "probe_stream_read", 64)
+    lib = _library()
+    dev = words.device
+    with torch.cuda.device(dev):
+        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
+        out = torch.empty(1, dtype=torch.int32, device=dev)
+        side = torch.empty(rows // 64, dtype=torch.int32, device=dev)
+        err = lib.csv_probe_stream_read(
+            words.data_ptr(), rows, carry_ptr, carry_int, out.data_ptr(),
+            side.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_stream_read")
+    LAUNCHES["probe_stream_read"] += 1
+    return out[0], side
+
+
+def probe_alu_op_counts() -> tuple:
+    """The op counts csrc/probe_alu.cu is built for (read once)."""
+    global _alu_op_counts
+    if _alu_op_counts is None:
+        lib = _library()
+        out, i = [], 0
+        while (n := lib.csv_probe_alu_op_count(i)) > 0:
+            out.append(n)
+            i += 1
+        _alu_op_counts = tuple(out)
+    return _alu_op_counts
+
+
+def _alu_consts(consts) -> ctypes.Array:
+    """The 256 constants as a C int array, made once per set."""
+    key = tuple(int(c) for c in consts)
+    if key not in _alu_const_arrays:
+        _alu_const_arrays[key] = (ctypes.c_int * len(key))(*key)
+    return _alu_const_arrays[key]
+
+
+def probe_alu(words: torch.Tensor, n_ops: int, mix_index: int, consts,
+              s) -> torch.Tensor:
+    """csrc/probe_alu.cu on CUDA (rows, 128) int32 -> (rows, 128) int32:
+    n_ops chained int32 ops of mix `mix_index` (0 alu, 1 shift, 2 mul)
+    with the 256 constants `consts`; s is an int or a 0-d int32 tensor on
+    the card (its full value, not a bit)."""
+    _check_rows128(words, "probe_alu", 1)
+    counts = probe_alu_op_counts()
+    if n_ops not in counts:
+        raise ValueError(f"probe_alu: n_ops must be one of {counts}, got "
+                         f"{n_ops}")
+    if mix_index not in (0, 1, 2):
+        raise ValueError(f"probe_alu: mix index {mix_index} is not 0, 1, 2")
+    if len(consts) != 256:
+        raise ValueError("probe_alu: expected 256 constants")
+    lib = _library()
+    dev = words.device
+    k = _alu_consts(consts)
+    with torch.cuda.device(dev):
+        if isinstance(s, torch.Tensor):
+            s_t = s.to(device=dev, dtype=torch.int32).reshape(1)
+            s_ptr, s_int = s_t.data_ptr(), 0
+        else:
+            s_ptr, s_int = None, int(s)
+        out = torch.empty_like(words)
+        err = lib.csv_probe_alu(
+            words.data_ptr(), words.numel(), k, mix_index, n_ops, s_ptr,
+            s_int, out.data_ptr(),
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_alu")
+    LAUNCHES["probe_alu"] += 1
+    return out
+
+
+def probe_ablate(words: torch.Tensor, mode: str, tile: int, carry_in):
+    """csrc/probe_ablate.cu on CUDA (rows, 128) int32 -> (out (rows/8,
+    128) int32, side (rows/tile,) int32), the stage cut `mode` at `tile`
+    rows (a multiple of 8 dividing rows); "v3i8" is "v3"."""
+    rows = _check_rows128(words, "probe_ablate", 8)
+    mode = "v3" if mode == "v3i8" else mode
+    if mode not in ABLATE_MODES:
+        raise ValueError(f"probe_ablate: mode must be one of {ABLATE_MODES} "
+                         f"or 'v3i8', got {mode!r}")
+    lib = _library()
+    max_tile = lib.csv_probe_ablate_max_tile()
+    if tile <= 0 or tile % 8 or rows % tile or tile > max_tile:
+        raise ValueError(f"probe_ablate: tile {tile} must be a positive "
+                         f"multiple of 8 that divides the {rows} rows, at "
+                         f"most {max_tile}")
+    dev = words.device
+    with torch.cuda.device(dev):
+        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
+        n_chunks = lib.csv_probe_ablate_chunks(rows, tile)
+        out = torch.empty((rows // 8, 128), dtype=torch.int32, device=dev)
+        side = torch.empty(rows // tile, dtype=torch.int32, device=dev)
+        scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
+        scalars = torch.empty(2, dtype=torch.int32, device=dev)
+        err = lib.csv_probe_ablate(
+            ABLATE_MODES.index(mode), words.data_ptr(), rows, tile,
+            carry_ptr, carry_int, out.data_ptr(), side.data_ptr(),
+            scratch.data_ptr(), scalars.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_ablate")
+    LAUNCHES["probe_ablate"] += 1
+    return out, side

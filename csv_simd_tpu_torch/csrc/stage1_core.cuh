@@ -1,5 +1,6 @@
 // The classify-and-carry core shared by every stage-1 kernel (B1 in
-// stage1_v4.cu; B3, B5 and B6 in stage1_pack.cu).
+// stage1_v4.cu; B3, B5 and B6 in stage1_pack.cu) and by the stage-cut probe
+// (probe_ablate.cu).
 //
 // All of them compute one mask over the input's flat byte stream: a byte is
 // kept iff it is a delimiter or newline outside quotes, where in-quote is the
@@ -15,7 +16,9 @@
 //           carry-in, read from device memory when the caller passes a
 //           pointer) and writes the parity out;
 //   pass B  each layout's kernel walks its chunk again in 4 KiB steps, and
-//           `step_mask` gives each thread the 16-bit mask of its 16 bytes.
+//           `step_mask` gives each thread the 16-bit mask of its 16 bytes
+//           (`step_carry`, its carry step, also serves the stage-cut probe
+//           in probe_ablate.cu).
 // A step is 256 threads x 16 bytes: loads are one uint4 a thread, neighbours
 // on neighbouring addresses. The classify compares bytes with __vcmpeq4,
 // which serves ASCII and non-ASCII dialects alike.
@@ -127,23 +130,47 @@ chunk_carry_scan(const int* __restrict__ chunk_par, int* __restrict__ chunk_carr
   if (threadIdx.x == 0) scalars[1] = count_nonascii ? (int)*nonascii : -1;
 }
 
+// The carry step of one 4 KiB step of pass B. `odd` is 1 iff this thread's
+// 16 bytes hold an odd number of quotes (the step's threads in order).
+// Returns the quote parity before the thread's first byte. `carry` enters as
+// the parity before the step and leaves as the parity after it. A thread
+// gets its exclusive parity within the warp from __ballot_sync and __popc,
+// and the warps' parities combine in shared memory. The call holds one
+// __syncthreads, so every thread of the block makes it for every step;
+// `s_wpar` is the block's two-buffer warp parity array and `step` picks the
+// buffer: a warp that runs ahead writes the other one, and the barrier of
+// the step between keeps it from the one being read.
+__device__ __forceinline__ uint32_t step_carry(uint32_t odd, uint32_t& carry,
+                                               uint32_t (*s_wpar)[kWarps],
+                                               int step) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t bal = __ballot_sync(kFull, odd);
+  const uint32_t lane_excl = __popc(bal & ((1u << lane) - 1u)) & 1u;
+  const int buf = step & 1;
+  if (lane == 0) s_wpar[buf][warp] = __popc(bal) & 1u;
+  __syncthreads();
+  uint32_t warp_excl = 0, step_par = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    const uint32_t w = s_wpar[buf][i];
+    warp_excl ^= (i < warp) ? w : 0u;
+    step_par ^= w;
+  }
+  const uint32_t before = carry ^ warp_excl ^ lane_excl;
+  carry ^= step_par;
+  return before;
+}
+
 // One 4 KiB step of pass B. `off` is this thread's first byte (16 per
 // thread, the step's threads in order). Returns the thread's 16-bit mask:
 // bit k is 1 iff byte off+k is structural and outside quotes (0 past
-// n_bytes). `carry` enters as the quote parity before the step and leaves as
-// the parity after it. A thread builds 16-bit quote and structural masks,
-// takes the in-thread prefix XOR by shifts of 1/2/4/8, gets its exclusive
-// parity within the warp from __ballot_sync and __popc, and the warps'
-// parities combine in shared memory. The call holds one __syncthreads, so
-// every thread of the block makes it for every step; `s_wpar` is the block's
-// two-buffer warp parity array and `step` picks the buffer: a warp that runs
-// ahead writes the other one, and the barrier of the step between keeps it
-// from the one being read.
+// n_bytes). `carry` is as in step_carry. A thread builds 16-bit quote and
+// structural masks, takes the in-thread prefix XOR by shifts of 1/2/4/8, and
+// XORs in the parity before it from step_carry.
 __device__ __forceinline__ uint32_t step_mask(
     const uint4* __restrict__ in, long long off, long long n_bytes,
     const ByteClasses& c, uint32_t& carry, uint32_t (*s_wpar)[kWarps],
     int step) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   uint32_t q = 0, s = 0;
   if (off < n_bytes) {
     const uint4 v = in[off >> 4];
@@ -156,20 +183,8 @@ __device__ __forceinline__ uint32_t step_mask(
   p ^= p << 2;
   p ^= p << 4;
   p ^= p << 8;
-  const uint32_t bal = __ballot_sync(kFull, __popc(q) & 1u);
-  const uint32_t lane_excl = __popc(bal & ((1u << lane) - 1u)) & 1u;
-  const int buf = step & 1;
-  if (lane == 0) s_wpar[buf][warp] = __popc(bal) & 1u;
-  __syncthreads();
-  uint32_t warp_excl = 0, step_par = 0;
-#pragma unroll
-  for (int i = 0; i < kWarps; ++i) {
-    const uint32_t w = s_wpar[buf][i];
-    warp_excl ^= (i < warp) ? w : 0u;
-    step_par ^= w;
-  }
-  const uint32_t in_quote = p ^ (0u - (carry ^ warp_excl ^ lane_excl));
-  carry ^= step_par;
+  const uint32_t before = step_carry(__popc(q) & 1u, carry, s_wpar, step);
+  const uint32_t in_quote = p ^ (0u - before);
   return s & ~in_quote & 0xffffu;
 }
 

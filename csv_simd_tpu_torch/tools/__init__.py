@@ -1,0 +1,19 @@
+"""The port's measurement tools: the JAX package's probes under tools/,
+rebuilt on the card's own kernels, with the JAX tools' names.
+
+    python -m csv_simd_tpu_torch.tools.widestore_probe [mb ...]
+        B1n: the fused row prefix A/B (scan, build = B1 + B2, buildf)
+    python -m csv_simd_tpu_torch.tools.dma_probe [mb ...]
+        the memory stream: read N, write N/8 (narrow, tall2, tall8, wide),
+        and the read-only sum
+    python -m csv_simd_tpu_torch.tools.vpu_roofline [mb]
+        the int32 op rate per mix (alu, shift, mul)
+    python -m csv_simd_tpu_torch.tools.ablate [mode:tile ...]
+        the stage-1 build cut after each stage, in GB/s
+
+Each runs on one NVIDIA card (and exits 2 without one), holds its kernel
+against the plain PyTorch version first, exits non-zero on any mismatch,
+and prints one JSON line of results, with the card's name and power
+limit. Times are CUDA-event means over many launches after a warm-up,
+taken in turns when a tool compares several versions.
+"""

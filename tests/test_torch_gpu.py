@@ -307,3 +307,96 @@ def test_offsets_route_on_card(cuda_device, tmp_path):
     assert bool(valid.all())
     got = dt.to_host_lists(out, lengths, valid)
     assert got == [tape.seek_field(int(r), int(f)) for r, f in zip(recs, flds)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 100, 128, 129, 512, 2056, 20_000])
+def test_b1n_kernel_matches_plain(cuda_device, rows):
+    """emit_counts and emit_prefix (narrow; prefix also wide-native)
+    against the plain versions, three dialects, carries 0, 1 and a
+    device 1; the words equal B1's without emits."""
+    from csv_simd_tpu_torch.ops.stage1_v4 import _row_emits_plain
+
+    arr = _bytes(rows, 5 * rows)
+    w = torch.from_numpy(arr.view("<i4").reshape(rows, 128).copy())
+    w = w.to(cuda_device)
+    dev_one = torch.ones((), dtype=torch.int32, device=cuda_device)
+    for kw in DIALECTS:
+        d = Dialect(**kw)
+        for carry in (0, 1, dev_one):
+            before = _kernels.launch_counts()["stage1_v4_emit"]
+            got = stage1_fused_v4(w, carry, d, emit_counts=True,
+                                  emit_prefix=True)
+            assert _kernels.launch_counts()["stage1_v4_emit"] == before + 1
+            plain = stage1_fused_v4(w, carry, d)
+            _same(got[:3], plain)
+            _same(got[3:], _row_emits_plain(plain[0]))
+            if rows % 8 == 0:
+                wide = stage1_fused_v4(w.view(-1, 1024), carry, d,
+                                       out_mode="wide_native",
+                                       emit_prefix=True)
+                _same(wide[3:], (got[4],))
+                _same((wide[3],), (prefix_for_packed(plain[0]),))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [512, 1536, 8192])
+def test_stream_probe_matches_plain(cuda_device, rows):
+    from csv_simd_tpu_torch.tools import dma_probe
+    from csv_simd_tpu_torch.tools._common import random_words
+
+    w = random_words(rows, cuda_device, rows)
+    for carry in (0, 1, torch.ones((), dtype=torch.int32,
+                                   device=cuda_device)):
+        for mode in dma_probe.WRITE_MODES:
+            _same(dma_probe.mk_write(w, mode, carry),
+                  dma_probe._write_plain(w, mode, carry))
+        _same(dma_probe.mk_read(w, carry), dma_probe._read_plain(w, carry))
+
+
+@pytest.mark.gpu
+def test_alu_probe_matches_plain(cuda_device):
+    from csv_simd_tpu_torch.tools import vpu_roofline
+    from csv_simd_tpu_torch.tools._common import random_words
+
+    # 32,768 rows: past one pass of the kernel's grid-stride loop
+    for rows in (1024, 32_768):
+        w = random_words(rows, cuda_device, 9)
+        for n_ops in _kernels.probe_alu_op_counts():
+            for mix in vpu_roofline.MIXES:
+                for s in (0, -5, torch.tensor(77, dtype=torch.int32,
+                                              device=cuda_device)):
+                    _same((vpu_roofline.probe(w, n_ops, mix, s),),
+                          (vpu_roofline._probe_plain(w, n_ops, mix, s),))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,tile", [(64, 8), (1024, 64), (2048, 512),
+                                       (264, 24), (8192, 1024)])
+def test_ablate_probe_matches_plain(cuda_device, rows, tile):
+    from csv_simd_tpu_torch.tools import ablate
+    from csv_simd_tpu_torch.tools._common import random_words
+
+    for w in (random_words(rows, cuda_device, rows),
+              ablate.csv_words(rows, cuda_device, tile)):
+        for carry in (0, 1, torch.ones((), dtype=torch.int32,
+                                       device=cuda_device)):
+            for mode in ablate.MODES:
+                _same(ablate.mk(w, mode, tile, carry),
+                      ablate._ablate_plain(w, mode, tile, carry))
+
+
+@pytest.mark.gpu
+def test_probe_kernels_reject_bad_input(cuda_device):
+    w = torch.zeros((1024, 128), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        _kernels.probe_stream_write(w[:1000], "narrow", 0)
+    with pytest.raises(ValueError):
+        _kernels.probe_stream_read(w.cpu(), 0)
+    with pytest.raises(ValueError):
+        _kernels.probe_alu(w, 17, 0, [1] * 256, 0)
+    with pytest.raises(ValueError):
+        _kernels.probe_ablate(w, "full", 12, 0)
+    with pytest.raises(ValueError):
+        _kernels.stage1_v4(w.view(-1)[:8], 0, Dialect(), True,
+                           emit_counts=True)

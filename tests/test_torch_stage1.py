@@ -17,7 +17,7 @@ from csv_simd_tpu.config import Dialect as JDialect
 from csv_simd_tpu.ops.stage1_v2 import pad_to_words as jpad_to_words
 from csv_simd_tpu.ops.stage1_v3 import stage1_seq_xla as jstage1_seq_xla
 from csv_simd_tpu.ops.stage1_v4 import stage1_fused_v4 as jstage1_fused_v4
-from csv_simd_tpu_torch.config import Dialect
+from csv_simd_tpu_torch.config import DEFAULT_DIALECT, Dialect
 from csv_simd_tpu_torch.ops.stage1_v2 import pad_to_words, padded_rows
 from csv_simd_tpu_torch.ops.stage1_v3 import stage1_seq_xla
 from csv_simd_tpu_torch.ops.stage1_v4 import stage1_fused_v4
@@ -159,10 +159,9 @@ def test_seq_oracle_matches_jax(seed):
 
 def test_stage1_rejects_unported_options_and_bad_shapes():
     w = torch.zeros((512, 128), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        stage1_fused_v4(w, 0, emit_counts=True)
-    with pytest.raises(NotImplementedError):
-        stage1_fused_v4(w, 0, emit_prefix=True)
+    for mode in ("wide", "wide_native"):
+        with pytest.raises(ValueError):  # JAX asserts the same
+            stage1_fused_v4(w, 0, emit_counts=True, out_mode=mode)
     with pytest.raises(ValueError):
         stage1_fused_v4(w, 0, out_mode="wide_plus")
     with pytest.raises(ValueError):
@@ -172,3 +171,89 @@ def test_stage1_rejects_unported_options_and_bad_shapes():
     with pytest.raises(ValueError):
         stage1_fused_v4(torch.zeros((12, 128), dtype=torch.int32), 0,
                         out_mode="wide_native")
+
+
+def test_stage1_takes_the_jax_signature():
+    """The JAX parameter order and keywords: row_tile positional (4th),
+    count_nonascii positional (8th), and the Mosaic flags as keywords,
+    which change nothing, give JAX interpret mode's words, parity and
+    non-ASCII count."""
+    rng = np.random.default_rng(31)
+    arr = rng.choice(np.frombuffer(b'ab"",\n\rx\xc3\xa9', np.uint8),
+                     size=150_000)
+    w = pad_to_words(arr)
+    want = jstage1_fused_v4(jnp.asarray(w), 1, JDialect(), 512,
+                            interpret=True)
+    got = stage1_fused_v4(torch.from_numpy(w.copy()), 1, DEFAULT_DIALECT,
+                          512)
+    kw = stage1_fused_v4(torch.from_numpy(w.copy()), 1, row_tile=512,
+                         interpret=True, pack_mode="mm4i8", vma=(),
+                         base_mode="shift", compress_mode="m80",
+                         scan_mm="i8")
+    for out in (got, kw):
+        np.testing.assert_array_equal(out[0].numpy(), np.asarray(want[0]))
+        assert int(out[1]) == int(want[1])
+        assert int(out[2]) == int(want[2]) > 0
+    _, _, na = stage1_fused_v4(torch.from_numpy(w.copy()), 1,
+                               DEFAULT_DIALECT, 512, False, (), False, False)
+    assert int(na) == -1
+
+
+def _check_emits(arr: np.ndarray, dialect_kw: dict, carry: int) -> None:
+    """B1n narrow: the port's (words, parity, count, counts, prefix) equal
+    JAX interpret mode's, and the prefix equals the separate B2 pass."""
+    w = pad_to_words(arr)
+    got = stage1_fused_v4(torch.from_numpy(w.copy()), carry,
+                          Dialect(**dialect_kw), emit_counts=True,
+                          emit_prefix=True)
+    want = jstage1_fused_v4(jnp.asarray(w), carry, JDialect(**dialect_kw),
+                            interpret=True, emit_counts=True,
+                            emit_prefix=True)
+    assert got[3].shape == (w.shape[0], 1) and got[4].shape == (w.shape[0],)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+    np.testing.assert_array_equal(got[4].numpy(),
+                                  np.cumsum(got[3].numpy()[:, 0]))
+    assert int(got[4][-1]) == int(golden.structural_mask(
+        arr, JDialect(**dialect_kw), carry_in=carry).sum())
+
+
+@pytest.mark.parametrize("case", all_cases(), ids=lambda c: c.name)
+def test_stage1_emits_match_jax_on_corpus(case):
+    arr = np.frombuffer(case.data, dtype=np.uint8)
+    _check_emits(arr, {}, 0)
+    _check_emits(arr, DIALECTS["semicolon_apostrophe"], 1)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_stage1_emits_match_jax_on_fuzz(seed):
+    rng = np.random.default_rng(40 + seed)
+    alphabet = np.frombuffer(b'ab"",\n\rx,z":; \t\'\xc3\xa9\xa2', np.uint8)
+    arr = rng.choice(alphabet, size=int(rng.integers(100_000, 200_000)))
+    for kw in (DIALECTS["default"], DIALECTS["semicolon_apostrophe"]):
+        _check_emits(arr, kw, seed)
+
+
+@pytest.mark.parametrize("carry", [0, 1])
+@pytest.mark.parametrize("lanes", [128, 1024])
+def test_stage1_wide_prefix_matches_jax_across_tiles(carry, lanes):
+    """emit_prefix with out_mode="wide_native" over ~128 KB at JAX
+    row_tile=64 (four tiles carry the running total), for both input
+    shapes; the port's row_tile changes nothing."""
+    rng = np.random.default_rng(50 + carry)
+    arr = rng.choice(np.frombuffer(b'a",\n\rx;\'z7', np.uint8),
+                     size=128 * 1024 - 77)
+    w = pad_to_words(arr, row_align=64)
+    assert w.shape[0] == 256
+    for kw in (DIALECTS["default"], DIALECTS["semicolon_apostrophe"]):
+        want = jstage1_fused_v4(
+            jnp.asarray(w.reshape(-1, 1024)), carry, JDialect(**kw),
+            row_tile=64, interpret=True, out_mode="wide_native",
+            emit_prefix=True)
+        got = stage1_fused_v4(
+            torch.from_numpy(w.reshape(-1, lanes).copy()), carry,
+            Dialect(**kw), row_tile=64, out_mode="wide_native",
+            emit_prefix=True)
+        assert got[0].shape == (32, 128) and got[3].shape == (256,)
+        for g, x in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(x))
