@@ -21,8 +21,13 @@ Phases, each of which fails the run on any error:
    device-scalar carry too; at 64 MiB B3 against golden and against B1's
    words, with the carry chained on the card over four chunks; B1n's
    row counts and prefix (narrow, and the prefix wide) over the corpus
-   and fuzz inputs; and each probe kernel (stream, ALU, ablation) with
-   its side words against its plain version at several sizes;
+   and fuzz inputs; each probe kernel (stream, ALU, ablation) with its
+   side words against its plain version at several sizes; and the
+   stage-1 labs: B1's stage cuts (ablate2: every cut, carries 0, 1 and
+   a device 1, tiles 8, 64 and 512, v4full against B1's narrow words),
+   the v1-layout variants (kbench: words and last-tile count, full
+   against B6) and the direct fold pack (vnext: against its plain
+   version and B3, and at 64 MiB against golden);
 3. the offsets-free path at 1 GiB (the wide-table configuration):
    create_packed on a 1 GiB CSV made of the data rows of one 64 MiB
    synthetic_wide_table block repeated after its header, a warm-up batch
@@ -46,20 +51,25 @@ Phases, each of which fails the run on any error:
    buildf's prefix held against B2's at 1 GiB; the memory-stream probe
    in every mode and the stage ablation at 64 MiB and 1 GiB; the int32
    ALU rate per mix at 64 MiB; B1's and B3's GB/s against the stream
-   probe's wide ceiling. Probe kernels are timed from CUDA graphs (the
+   probe's wide ceiling; and the labs at 64 MiB and 1 GiB: B1's stage
+   cuts beside B1, B3 and B4 (ablate2), the v1-layout variants beside B6
+   (kbench, on the same random words as bytes) and the direct fold pack
+   beside B3 (vnext). Probe kernels are timed from CUDA graphs (the
    kernels alone) and from eager launches;
 7. a torch.profiler trace (utils.profiling.device_trace) of a warm
    create_packed and a warm create at 1 GiB: the five device ops that
    took the most time and the device-busy share of the traced window.
    The trace must name B1's and B3's kernels. A second trace gives each
-   probe kernel's device time a launch at 64 MiB.
+   probe and lab kernel's device time a launch at 64 MiB, with B1's
+   pass B (`mask_pack`) beside the v4full cut's (`ablate2_pass<8>`).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
 It prints one JSON line with the kernels' launch counts (each from its
-path's run), errors and times, and last the device line. It imports
-nothing of JAX: the port's shared host modules (golden among them) are
-loaded from their sources by csv_simd_tpu_torch._host.
+path's run), errors, times and bounds, and last the device line. It
+imports nothing of JAX and nothing of csv_simd_tpu: the port keeps its
+own copies of the host modules (golden among them), and g++ builds its
+native extractor under csv_simd_tpu_torch/_build/.
 """
 
 from __future__ import annotations
@@ -84,10 +94,27 @@ DEVICE = torch.device("cuda", 0)
 
 DIALECTS = ({}, dict(delimiter=0x3B, quote=0x27), dict(quote=0xA2))
 
+# the card's peaks for the bound (NVIDIA's H100 SXM data sheet): HBM
+# bytes/s, and 32-bit operations/s outside the tensor cores (67 TFLOP/s
+# of float32 counts an FMA as two: 33.5 T instructions/s; int32 adds,
+# logic and shifts issue on the same lanes)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 33.5e12
+# aten ops that move or make data without computing on it
+_FREE_OPS = {"view", "_unsafe_view", "slice", "select", "expand", "reshape",
+             "clone", "copy_", "cat", "empty", "zeros", "ones", "full",
+             "arange", "_to_copy", "lift_fresh", "detach", "alias",
+             "unsqueeze", "squeeze", "t", "transpose", "permute",
+             "new_zeros", "zeros_like", "empty_like", "scalar_tensor",
+             "_local_scalar_dense", "as_strided", "index", "stack",
+             "constant_pad_nd", "fill_", "zero_", "new_empty", "split",
+             "unbind", "contiguous"}
+
 
 GATED = ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
          "stage1_v2", "stage1_v1", "stage1_v4_emit", "dma_probe",
-         "dma_probe2.write", "dma_probe2.read", "vpu_roofline", "ablate")
+         "dma_probe2.write", "dma_probe2.read", "vpu_roofline", "ablate",
+         "ablate2", "kbench", "vnext")
 
 
 class Gate:
@@ -111,6 +138,106 @@ class Gate:
         self.max_abs_err[name] = max(self.max_abs_err[name],
                                      result["max_abs_err"])
         self.checks[name] += result["checks"]
+
+
+def plain_work(fn) -> tuple:
+    """(operations, output bytes) of one call of fn, a plain version on
+    CPU tensors: every aten op it runs that computes counts the largest
+    element count among its tensor inputs and outputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ not in _FREE_OPS:
+                Count.ops += max((x.numel() for x in tree_leaves((args, out))
+                                  if isinstance(x, torch.Tensor)), default=0)
+            return out
+
+    with Count():
+        out = fn()
+    out_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(out)
+                    if isinstance(x, torch.Tensor))
+    return Count.ops, out_bytes
+
+
+def bounds(timed: dict, hi_ops: int) -> dict:
+    """{kernel: (bound ms, "bytes" or "operations", bytes moved,
+    operations)} for the inputs each
+    kernel was timed on ({kernel: input bytes}): the operations and the
+    output bytes of its plain version, counted on a 256 KiB CPU input
+    and scaled by input size (each grows with it), the input read once
+    and the output written once, against the card's peaks. B6's and the
+    v1 variants' plain versions compute on one byte an int32; their
+    operations are counted on B1's plain version (four bytes an int32)
+    over the same bytes, the same mask in fewer operations."""
+    from csv_simd_tpu_torch.config import DEFAULT_DIALECT as d
+    from csv_simd_tpu_torch.offsetfree import _prefix_for_packed_xla
+    from csv_simd_tpu_torch.ops.stage1_pallas import _stage1_pallas_plain
+    from csv_simd_tpu_torch.ops.stage1_v2 import stage1_swar_jnp
+    from csv_simd_tpu_torch.ops.stage1_v3 import (
+        stage1_seq_xla,
+        stage1_swar_xla,
+    )
+    from csv_simd_tpu_torch.ops.stage1_v4 import (
+        _row_emits_plain,
+        _stage1_v4_plain,
+    )
+    from csv_simd_tpu_torch.tools import (
+        ablate,
+        ablate2,
+        dma_probe,
+        kbench,
+        vnext,
+        vpu_roofline,
+    )
+    from csv_simd_tpu_torch.tools._common import csv_words
+
+    w = csv_words(512, "cpu", 5)
+    b = w.view(torch.uint8).view(-1, 128)
+    packed = _stage1_v4_plain(w.view(-1), 0, d, False)[0]
+
+    def b1n():
+        words = _stage1_v4_plain(w.view(-1), 0, d, False)[0]
+        return (words,) + _row_emits_plain(words)
+
+    plain = {
+        "stage1_v4": (w, lambda: _stage1_v4_plain(w.view(-1), 0, d, False)),
+        "row_prefix": (packed, lambda: _prefix_for_packed_xla(packed)),
+        "stage1_fold": (w, lambda: stage1_swar_xla(w, 0)),
+        "stage1_seq": (w, lambda: stage1_seq_xla(w, 0)),
+        "stage1_v2": (w, lambda: stage1_swar_jnp(w, 0)),
+        "stage1_v1": (b, lambda: _stage1_pallas_plain(b, 0, d)),
+        "stage1_v4_emit": (w, b1n),
+        "dma_probe": (w, lambda: dma_probe._write_plain(w, "narrow", 1)),
+        "dma_probe2.write": (w, lambda: dma_probe._write_plain(w, "tall8",
+                                                               1)),
+        "dma_probe2.read": (w, lambda: dma_probe._read_plain(w, 1)),
+        "vpu_roofline": (w, lambda: vpu_roofline._probe_plain(w, hi_ops,
+                                                              "alu", 1)),
+        "ablate": (w, lambda: ablate._ablate_plain(w, "full", 512, 1)),
+        "ablate2": (w, lambda: ablate2.plain(w, "v4full", 512, 1)),
+        "kbench": (b, lambda: kbench._variant_plain(b, "roll", 1024, 1)),
+        "vnext": (w, lambda: vnext._vnext_plain(w, 512, 1, True)),
+    }
+    swar_ops = plain_work(plain["stage1_v4"][1])[0]
+    out = {}
+    for name, n_in in timed.items():
+        x, fn = plain[name]
+        ops, out_bytes = plain_work(fn)
+        if name in ("stage1_v1", "kbench"):
+            ops = swar_ops
+        scale = n_in / (x.numel() * x.element_size())
+        moved = n_in + out_bytes * scale
+        by_bytes = moved / HBM_BYTES_PER_S
+        by_ops = ops * scale / INT32_OPS_PER_S
+        out[name] = ((max(by_bytes, by_ops) * 1e3),
+                     "bytes" if by_bytes >= by_ops else "operations",
+                     moved, ops * scale)
+    return out
 
 
 def _unpack(packed: torch.Tensor, n: int) -> np.ndarray:
@@ -367,15 +494,25 @@ def gate_pack_block(gate: Gate, device, block: bytes, golden) -> dict:
 
 
 def gate_probes(gate: Gate, device) -> None:
-    """Each probe kernel, outputs and side words, against its plain
-    version at several sizes and carries (the tools' own gates)."""
-    from csv_simd_tpu_torch.tools import ablate, dma_probe, vpu_roofline
+    """Each probe and lab kernel, outputs and side words, against its
+    plain version at several sizes and carries (the tools' own gates)."""
+    from csv_simd_tpu_torch.tools import (
+        ablate,
+        ablate2,
+        dma_probe,
+        kbench,
+        vnext,
+        vpu_roofline,
+    )
 
     stream = dma_probe.gate(device)
     for name in ("dma_probe", "dma_probe2.write", "dma_probe2.read"):
         gate.record(name, stream)
     gate.record("vpu_roofline", vpu_roofline.gate(device))
     gate.record("ablate", ablate.gate(device))
+    for name, tool in (("ablate2", ablate2), ("kbench", kbench),
+                       ("vnext", vnext)):
+        gate.record(name, tool.gate(device))
 
 
 def _device_ops(trace_path: str) -> tuple:
@@ -413,12 +550,23 @@ def _short(name: str) -> str:
 
 def probe_trace(words: torch.Tensor) -> dict:
     """{kernel: (mean device ms a launch, launches)} from a torch.profiler
-    trace of five calls of every stream and ablation mode (tile 512) and
-    two of every ALU op count and mix on words."""
+    trace of five calls of every stream and ablation mode (tile 512), of
+    B1's narrow build, every B1 stage cut, every v1-layout variant (the
+    words as bytes) and the direct fold pack, and two of every ALU op
+    count and mix on words."""
     from csv_simd_tpu_torch import _kernels
-    from csv_simd_tpu_torch.tools import ablate, dma_probe, vpu_roofline
+    from csv_simd_tpu_torch.ops.stage1_v4 import stage1_fused_v4
+    from csv_simd_tpu_torch.tools import (
+        ablate,
+        ablate2,
+        dma_probe,
+        kbench,
+        vnext,
+        vpu_roofline,
+    )
     from csv_simd_tpu_torch.utils import profiling
 
+    as_bytes = kbench.as_bytes(words)
     with tempfile.TemporaryDirectory() as trace_dir:
         with profiling.device_trace(trace_dir):
             for _ in range(5):
@@ -427,6 +575,12 @@ def probe_trace(words: torch.Tensor) -> dict:
                 dma_probe.mk_read(words, 1)
                 for mode in ablate.MODES:
                     ablate.mk(words, mode, 512, 1)
+                stage1_fused_v4(words, 1, count_nonascii=False)
+                for cut in _kernels.ABLATE2_CUTS:
+                    ablate2.mk(words, cut, 512, 1)
+                for name in ("nopar", "lanescan", "roll"):
+                    kbench.make_variant(as_bytes, name, 1024, 1)
+                vnext.make(words, 512, 1, directpack=True)
             for _ in range(2):
                 for n_ops in _kernels.probe_alu_op_counts():
                     for mix in vpu_roofline.MIXES:
@@ -651,7 +805,10 @@ def main() -> int:
     )
     from csv_simd_tpu_torch.tools import (
         ablate,
+        ablate2,
         dma_probe,
+        kbench,
+        vnext,
         vpu_roofline,
         widestore_probe,
     )
@@ -689,6 +846,8 @@ def main() -> int:
               for c in cases] + fuzz_arrays()
     gate_pack(gate, device, arrays, golden)
     blk = gate_pack_block(gate, device, block, golden)
+    # the direct fold pack at 64 MiB against B3 and golden
+    gate.record("vnext", vnext.check(blk["words"]))
     gate_probes(gate, device)
     print("gate: " + ", ".join(f"{k} {v}" for k, v in gate.checks.items())
           + f" comparisons, all bit-identical "
@@ -823,6 +982,7 @@ def main() -> int:
     ms["stage1_fold"] = cuda_ms(lambda: stage1_fused(w2d, 0), 20)
     ms["stage1_fold_plain"] = cuda_ms(lambda: stage1_swar_xla(w2d, 0), 3)
     bw, bb = blk["words"], blk["bytes"]
+    bw_bytes, bb_bytes = bw.numel() * 4, bb.numel()
     ms["stage1_seq"] = cuda_ms(lambda: stage1_fused_seq(bw, 0), 20)
     ms["stage1_seq_plain"] = cuda_ms(lambda: stage1_seq_xla(bw, 0), 5)
     ms["stage1_v2"] = cuda_ms(lambda: stage1_pallas_v2(bw, 0), 20)
@@ -852,6 +1012,7 @@ def main() -> int:
         _stage1_v4_plain(words, 0, d, False)[0]), 2)
     stream, l_dma1, l_dma2w, l_dma2r = {}, {}, {}, {}
     abl, l_abl = {}, {}
+    ab2, l_ab2, kb, l_kb, vn, l_vn = {}, {}, {}, {}, {}, {}
     rnd = {"64 MiB": random_words(BLOCK_BYTES // 512, device, 64),
            "1 GiB": random_words(16 * BLOCK_BYTES // 512, device, 1024)}
     for at, w in rnd.items():
@@ -873,6 +1034,30 @@ def main() -> int:
         abl[at], l_abl[at] = driven(ablate.run, w)
         need(l_abl[at], "probe_ablate", len(ablate.MODES),
              f"ablate.run at {at}")
+        # the labs: B1's stage cuts, the v1 variants on the same random
+        # words as bytes, the direct fold pack
+        gate.record("ablate2", ablate2.check(w))
+        ab2[at], l_ab2[at] = driven(ablate2.run, w)
+        need(l_ab2[at], "probe_ablate2", len(_kernels.ABLATE2_CUTS),
+             f"ablate2.run at {at}")
+        gate.record("kbench", kbench.check(kbench.as_bytes(w)))
+        kb[at], l_kb[at] = driven(kbench.run, kbench.as_bytes(w))
+        need(l_kb[at], "probe_kbench", 4, f"kbench.run at {at}")
+        gate.record("vnext", vnext.check_timed(w))
+        vn[at], l_vn[at] = driven(vnext.run, w)
+        need(l_vn[at], "probe_vnext", 2, f"vnext.run at {at}")
+    ms["ablate2"] = ab2["1 GiB"]["v4full:512"]["ms"]
+    ms["ablate2_plain"] = ab2["1 GiB"]["v4full:512"]["plain_ms"]
+    ms["kbench"] = kb["1 GiB"]["roll:1024"]["ms"]
+    ms["kbench_plain"] = kb["1 GiB"]["roll:1024"]["plain_ms"]
+    ms["vnext"] = vn["1 GiB"]["directpack"]["ms"]
+    ms["vnext_plain"] = vn["1 GiB"]["directpack"]["plain_ms"]
+    # the one library call that computes a probe's function: the read
+    # probe's (64, 128)-block sums are one int32 sum
+    big_w = rnd["1 GiB"]
+    library_ms = {"dma_probe2.read": cuda_ms(lambda: big_w.view(
+        -1, 64 * 128).sum(1, dtype=torch.int32), 20)}
+    del big_w
     big = stream["1 GiB"]
     ms["dma_probe"] = big["dma_probe"]["narrow"]["ms"]
     ms["dma_probe_plain"] = big["dma_probe"]["narrow"]["plain_ms"]
@@ -1013,6 +1198,21 @@ def main() -> int:
     print(f"probe kernels in a trace at 64 MiB on {card} (device ms a "
           "launch): " + "; ".join(f"{name} {t:.4f} x{n}" for name, (t, n)
                                   in sorted(probe_ops.items())))
+    for at in ("64 MiB", "1 GiB"):
+        for what, res in (("B1 stage cuts (ablate2)", ab2[at]),
+                          ("v1-layout variants (kbench)", kb[at]),
+                          ("direct fold pack (vnext)", vn[at])):
+            print(f"{what} at {at} on {card} (GB/s of input, CUDA graph; "
+                  "graph ms / eager ms / plain ms): " + ", ".join(
+                      f"{k} {v['gbps']:.1f} ({v['ms']:.4f} / "
+                      f"{v['eager_ms']:.4f} / {v['plain_ms']:.2f})"
+                      for k, v in res.items()))
+    pass_b = {k: v for k, v in probe_ops.items()
+              if k.startswith(("mask_pack", "ablate2_pass<8>",
+                               "chunk_parity"))}
+    print(f"B1's pass B beside the v4full cut's, 64 MiB trace on {card} "
+          "(device ms a launch): " + "; ".join(
+              f"{k} {t:.4f} x{n}" for k, (t, n) in sorted(pass_b.items())))
 
     print("gate with the timed inputs: " + ", ".join(
         f"{k} {v}" for k, v in gate.checks.items())
@@ -1031,7 +1231,7 @@ def main() -> int:
         ("stage1_fused", "cuda", "stage1_pack.cu",
          "csv_simd_tpu/ops/stage1_v3.py:106", "stage1_fold", l_create,
          "stage1_fold"),
-        ("stage1_fused_seq", "cuda via stage1_v4", "stage1_v4.cu",
+        ("stage1_fused_seq", "cuda", "stage1_v4.cu",
          "csv_simd_tpu/ops/stage1_v3.py:238", "stage1_v4", l_seq,
          "stage1_seq"),
         ("stage1_pallas_v2", "cuda", "stage1_pack.cu",
@@ -1055,15 +1255,47 @@ def main() -> int:
          "probe_alu", l_vpu, "vpu_roofline"),
         ("ablate", "cuda", "probe_ablate.cu", "tools/ablate.py:149",
          "probe_ablate", _sum(l_abl), "ablate"),
+        ("ablate2", "cuda", "probe_ablate2.cu", "tools/ablate2.py:136",
+         "probe_ablate2", _sum(l_ab2), "ablate2"),
+        ("kbench", "cuda", "probe_kbench.cu", "tools/kbench.py:142",
+         "probe_kbench", _sum(l_kb), "kbench"),
+        ("vnext", "cuda", "probe_vnext.cu", "tools/vnext.py:85",
+         "probe_vnext", _sum(l_vn), "vnext"),
     )
+    # the input bytes each kernel's `ms` was timed on
+    gib, blk_words = padded_rows(size) * ROW_BYTES, BLOCK_BYTES
+    timed = {"stage1_v4": gib, "row_prefix": gib // 8, "stage1_fold": gib,
+             "stage1_seq": bw_bytes, "stage1_v2": bw_bytes,
+             "stage1_v1": bb_bytes, "stage1_v4_emit": gib,
+             "dma_probe": 16 * blk_words, "dma_probe2.write": 16 * blk_words,
+             "dma_probe2.read": 16 * blk_words, "vpu_roofline": blk_words,
+             "ablate": blk_words, "ablate2": 16 * blk_words,
+             "kbench": 16 * blk_words, "vnext": 16 * blk_words}
+    bound = bounds(timed, hi)
     kernels = [
         {"name": name, "route": route_, "source": src + source,
          "replaces": replaces, "launches": launches[counter],
          "max_abs_err": gate.max_abs_err[gated], "ms": ms[gated],
-         "plain_ms": ms[gated + "_plain"]}
+         "plain_ms": ms[gated + "_plain"], "bound_ms": bound[gated][0],
+         "bound_by": bound[gated][1],
+         "library_ms": library_ms.get(gated)}
         for name, route_, source, replaces, counter, launches, gated
         in table
     ]
+    print(f"bounds on {card} (the least time for the timed inputs at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s and "
+          f"{INT32_OPS_PER_S / 1e12:.1f} T ops/s; ms / bound): " + ", ".join(
+              f"{k['name']} {k['ms']:.4f} / {k['bound_ms']:.4f} "
+              f"{k['bound_by']}" for k in kernels))
+    # the same work at the rates this run measured: the stream probe's
+    # wide mode (it reads N and writes N/8) and the ALU probe's alu mix
+    traffic = ceiling * 1e9 * 1.125
+    alu_rate = alu["alu"]["t_ops_per_s"] * 1e12
+    print(f"bounds at this card's measured rates ({traffic / 1e12:.3f} TB/s "
+          f"of traffic, {alu_rate / 1e12:.3f} T ops/s; ms, bytes moved, "
+          "operations): " + ", ".join(
+              f"{name} {max(b[2] / traffic, b[3] / alu_rate) * 1e3:.4f} "
+              f"({b[2]:.4g} B, {b[3]:.4g} ops)" for name, b in bound.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,12 +10,12 @@ the host and extracts the offsets there into a `Tape`, which
 `DeviceTape.from_tape` serves from the card; `create_streaming` does the
 same chunk by chunk. Every function takes an explicit device; the
 default is "cuda", and device="cpu" runs the plain PyTorch versions of
-the kernels. The package imports torch and never jax or csv_simd_tpu;
-the pure-host modules it shares with the JAX package are loaded from
-their sources by `_host`.
+the kernels. The package imports torch and never jax or csv_simd_tpu:
+it keeps its own copies of the JAX package's pure-host modules (config,
+errors, utils, serve, tape, artifact, golden and the native C++ engine,
+which g++ builds into `_build/` at first use).
 """
 
-from . import _host  # noqa: F401  (registers the shared host modules)
 from .api import create, create_from_bytes, create_packed
 from .artifact import load_tape, save_tape
 from .config import Dialect

@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
             "stage1_fold": 0, "stage1_v2": 0, "stage1_v1": 0,
             "probe_stream_write": 0, "probe_stream_read": 0, "probe_alu": 0,
-            "probe_ablate": 0}
+            "probe_ablate": 0, "probe_ablate2": 0, "probe_kbench": 0,
+            "probe_vnext": 0}
 # layout codes of csrc/stage1_pack.cu
 _FOLD, _V2, _V1 = 0, 1, 2
 
@@ -160,6 +161,21 @@ def _library():
         lib.csv_probe_ablate.argtypes = [i, vp, ll, i, vp, i, vp, vp, vp, vp,
                                          vp]
         lib.csv_probe_ablate.restype = i
+        lib.csv_probe_ablate2_chunks.argtypes = [ll]
+        lib.csv_probe_ablate2_chunks.restype = ll
+        lib.csv_probe_ablate2.argtypes = [i, vp, ll, i, vp, i, vp, vp, vp, vp,
+                                          vp]
+        lib.csv_probe_ablate2.restype = i
+        lib.csv_probe_kbench_chunks.argtypes = [ll]
+        lib.csv_probe_kbench_chunks.restype = ll
+        lib.csv_probe_kbench.argtypes = [i, vp, ll, i, vp, i, vp, vp, vp, vp]
+        lib.csv_probe_kbench.restype = i
+        lib.csv_probe_vnext_max_tile.argtypes = []
+        lib.csv_probe_vnext_max_tile.restype = i
+        lib.csv_probe_vnext_chunks.argtypes = [ll, i]
+        lib.csv_probe_vnext_chunks.restype = ll
+        lib.csv_probe_vnext.argtypes = [vp, ll, i, vp, i, vp, vp, vp, vp, vp]
+        lib.csv_probe_vnext.restype = i
         lib.csv_cuda_error_string.argtypes = [i]
         lib.csv_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -501,3 +517,103 @@ def probe_ablate(words: torch.Tensor, mode: str, tile: int, carry_in):
     _raise_on(err, "probe_ablate")
     LAUNCHES["probe_ablate"] += 1
     return out, side
+
+
+# cuts of csrc/probe_ablate2.cu and variants of csrc/probe_kbench.cu
+ABLATE2_CUTS = ("cls22", "cls18", "prep", "mm1", "pack1", "pack2", "px",
+                "lane", "v4full")
+ABLATE2_SIDE = ("cls22", "cls18", "prep", "mm1")
+KBENCH_VARIANTS = ("nopar", "lanescan", "full")
+
+
+def probe_ablate2(words: torch.Tensor, cut: str, tile: int, carry_in):
+    """csrc/probe_ablate2.cu on CUDA (rows, 128) int32 -> (out (rows, 16)
+    int32, side int32: one word a 64 KiB chunk for the cuts in
+    ABLATE2_SIDE, else empty), B1's pass B cut after stage `cut` ("pack1slice"
+    is "pack1") at tile rows (a multiple of 8 dividing rows)."""
+    rows = _check_rows128(words, "probe_ablate2", 8)
+    cut = "pack1" if cut == "pack1slice" else cut
+    if cut not in ABLATE2_CUTS:
+        raise ValueError(f"probe_ablate2: cut must be one of {ABLATE2_CUTS} "
+                         f"or 'pack1slice', got {cut!r}")
+    if tile <= 0 or tile % 8 or rows % tile:
+        raise ValueError(f"probe_ablate2: tile {tile} must be a positive "
+                         f"multiple of 8 that divides the {rows} rows")
+    lib = _library()
+    dev = words.device
+    with torch.cuda.device(dev):
+        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
+        n_chunks = lib.csv_probe_ablate2_chunks(rows)
+        out = torch.empty((rows, 16), dtype=torch.int32, device=dev)
+        side = torch.empty(n_chunks if cut in ABLATE2_SIDE else 0,
+                           dtype=torch.int32, device=dev)
+        scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
+        scalars = torch.empty(2, dtype=torch.int32, device=dev)
+        err = lib.csv_probe_ablate2(
+            ABLATE2_CUTS.index(cut), words.data_ptr(), rows, tile, carry_ptr,
+            carry_int, out.data_ptr(), _ptr(side) if side.numel() else None,
+            scratch.data_ptr(), scalars.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_ablate2")
+    LAUNCHES["probe_ablate2"] += 1
+    return out, side
+
+
+def probe_kbench(b2d: torch.Tensor, variant: str, tile: int, carry_in):
+    """csrc/probe_kbench.cu on CUDA (rows, 128) uint8 -> (v1-layout words
+    (rows/32, 128) int32, count 0-d int32: the structural count of the
+    last `tile` rows, plus the carry-in for nopar and lanescan)."""
+    _check_words(b2d, "probe_kbench", torch.uint8)
+    if b2d.dim() != 2 or b2d.shape[1] != 128:
+        raise ValueError(f"probe_kbench: expected (rows, 128) uint8, got "
+                         f"{tuple(b2d.shape)}")
+    rows = b2d.shape[0]
+    if variant not in KBENCH_VARIANTS:
+        raise ValueError(f"probe_kbench: variant must be one of "
+                         f"{KBENCH_VARIANTS}, got {variant!r}")
+    if tile <= 0 or tile % 32 or rows == 0 or rows % tile:
+        raise ValueError(f"probe_kbench: tile {tile} must be a positive "
+                         f"multiple of 32 that divides the {rows} rows")
+    lib = _library()
+    dev = b2d.device
+    with torch.cuda.device(dev):
+        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
+        n_chunks = lib.csv_probe_kbench_chunks(rows * 128)
+        out = torch.empty((rows // 32, 128), dtype=torch.int32, device=dev)
+        scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
+        scalars = torch.empty(3, dtype=torch.int32, device=dev)
+        err = lib.csv_probe_kbench(
+            KBENCH_VARIANTS.index(variant), b2d.data_ptr(), rows, tile,
+            carry_ptr, carry_int, out.data_ptr(), scratch.data_ptr(),
+            scalars.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_kbench")
+    LAUNCHES["probe_kbench"] += 1
+    return out, scalars[2]
+
+
+def probe_vnext(words: torch.Tensor, tile: int, carry_in):
+    """csrc/probe_vnext.cu on CUDA (rows, 128) int32 -> (B3's fold-layout
+    words (rows/8, 128) int32, parity out 0-d int32) by the atomic-free
+    direct pack, at tile rows (a multiple of 8 dividing rows)."""
+    rows = _check_rows128(words, "probe_vnext", 8)
+    lib = _library()
+    max_tile = lib.csv_probe_vnext_max_tile()
+    if tile <= 0 or tile % 8 or rows % tile or tile > max_tile:
+        raise ValueError(f"probe_vnext: tile {tile} must be a positive "
+                         f"multiple of 8 that divides the {rows} rows, at "
+                         f"most {max_tile}")
+    dev = words.device
+    with torch.cuda.device(dev):
+        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
+        n_chunks = lib.csv_probe_vnext_chunks(rows, tile)
+        out = torch.empty((rows // 8, 128), dtype=torch.int32, device=dev)
+        rowpar = torch.empty(rows, dtype=torch.uint8, device=dev)
+        scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
+        scalars = torch.empty(2, dtype=torch.int32, device=dev)
+        err = lib.csv_probe_vnext(
+            words.data_ptr(), rows, tile, carry_ptr, carry_int,
+            out.data_ptr(), rowpar.data_ptr(), scratch.data_ptr(),
+            scalars.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_vnext")
+    LAUNCHES["probe_vnext"] += 1
+    return out, scalars[0]

@@ -9,7 +9,13 @@ rebuilt on the card's own kernels, with the JAX tools' names.
     python -m csv_simd_tpu_torch.tools.vpu_roofline [mb]
         the int32 op rate per mix (alu, shift, mul)
     python -m csv_simd_tpu_torch.tools.ablate [mode:tile ...]
-        the stage-1 build cut after each stage, in GB/s
+        the stage-1 build cut after each stage (B3's layout), in GB/s
+    python -m csv_simd_tpu_torch.tools.ablate2 [mode:tile ...]
+        B1's own pass B cut after each stage, beside B1, B3 and B4
+    python -m csv_simd_tpu_torch.tools.kbench [variant[:tile] ...]
+        B6's v1 layout with its quote masking cut back, beside B6
+    python -m csv_simd_tpu_torch.tools.vnext [bench|check [FILE.csv]]
+        the atomic-free direct fold pack beside B3
 
 Each runs on one NVIDIA card (and exits 2 without one), holds its kernel
 against the plain PyTorch version first, exits non-zero on any mismatch,

@@ -3,10 +3,6 @@ torch.profiler: `device_trace` captures a trace of a block, with the
 card's kernels and copies when CUDA is present, and writes it into a
 directory as a Chrome trace; `named` marks a span in it.
 
-`_host` registers this module as `csv_simd_tpu_torch.utils.profiling`,
-so the JAX package's file of that name is never loaded under the port's
-name.
-
     from csv_simd_tpu_torch.utils import profiling
     with profiling.device_trace("trace_dir") as d:
         with profiling.named("build"):

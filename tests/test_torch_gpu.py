@@ -400,3 +400,88 @@ def test_probe_kernels_reject_bad_input(cuda_device):
     with pytest.raises(ValueError):
         _kernels.stage1_v4(w.view(-1)[:8], 0, Dialect(), True,
                            emit_counts=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,tile", [(64, 8), (1000, 8), (1024, 64),
+                                       (2048, 512), (264, 24), (8192, 1024)])
+def test_ablate2_probe_matches_plain(cuda_device, rows, tile):
+    """B1's stage cuts, words and side words, against their plain
+    versions; v4full also against B1's narrow words."""
+    from csv_simd_tpu_torch.tools import ablate2
+    from csv_simd_tpu_torch.tools._common import csv_words, random_words
+
+    for w in (random_words(rows, cuda_device, rows),
+              csv_words(rows, cuda_device, tile)):
+        for carry in (0, 1, torch.ones((), dtype=torch.int32,
+                                       device=cuda_device)):
+            before = _kernels.launch_counts()["probe_ablate2"]
+            for mode in ablate2.MICRO:
+                _same(ablate2.mk(w, mode, tile, carry),
+                      ablate2.plain(w, mode, tile, carry))
+            assert _kernels.launch_counts()["probe_ablate2"] == \
+                before + len(ablate2.MICRO)
+            _same((ablate2.mk(w, "v4full", tile, carry)[0],),
+                  (stage1_fused_v4(w, carry)[0],))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,tile", [(32, 32), (1024, 64), (1536, 512),
+                                       (4096, 1024), (8192, 32)])
+def test_kbench_probe_matches_plain(cuda_device, rows, tile):
+    """The v1-layout variants, words and last-tile count, against their
+    plain versions; full's words also against B6's."""
+    from csv_simd_tpu_torch.tools import kbench
+
+    from csv_simd_tpu_torch.tools._common import csv_words, random_words
+
+    for b in (kbench.as_bytes(random_words(rows // 4, cuda_device, rows)),
+              kbench.as_bytes(csv_words(rows // 4, cuda_device, tile))):
+        for carry in (0, 1, torch.ones((), dtype=torch.int32,
+                                       device=cuda_device)):
+            for name in kbench.VARIANTS:
+                _same(kbench.make_variant(b, name, tile, carry),
+                      kbench._variant_plain(b, name, tile, carry))
+            _same((kbench.make_variant(b, "roll", tile, carry)[0],),
+                  (stage1_pallas(b, carry, row_tile=tile)[0],))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,tile", [(8, 8), (64, 8), (1000, 8),
+                                       (1024, 64), (264, 24), (2048, 512),
+                                       (8192, 2048)])
+def test_vnext_direct_pack_matches_b3(cuda_device, rows, tile):
+    """The atomic-free fold pack against its plain version and B3 (words
+    and parity), and against golden on CSV bytes."""
+    from csv_simd_tpu_torch.tools import vnext
+
+    arr = _bytes(rows, 3 * rows + tile)
+    w = torch.from_numpy(arr.view("<i4").reshape(rows, 128).copy())
+    w = w.to(cuda_device)
+    for carry in (0, 1, torch.ones((), dtype=torch.int32,
+                                   device=cuda_device)):
+        before = _kernels.launch_counts()["probe_vnext"]
+        got = vnext.make(w, tile, carry, directpack=True)
+        assert _kernels.launch_counts()["probe_vnext"] == before + 1
+        _same(got, vnext._vnext_plain(w, tile, carry, True))
+        _same(got, stage1_fused(w, carry, row_tile=tile))
+        mask = unpack_packed_host(got[0].cpu().numpy(), arr.size, tile)
+        np.testing.assert_array_equal(
+            mask, golden.structural_mask(arr, carry_in=int(carry)))
+
+
+@pytest.mark.gpu
+def test_lab_kernels_reject_bad_input(cuda_device):
+    w = torch.zeros((1024, 128), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        _kernels.probe_ablate2(w, "pack3", 8, 0)
+    with pytest.raises(ValueError):
+        _kernels.probe_ablate2(w, "lane", 12, 0)
+    with pytest.raises(ValueError):
+        _kernels.probe_kbench(w, "full", 64, 0)
+    with pytest.raises(ValueError):
+        _kernels.probe_kbench(w.to(torch.uint8), "full", 48, 0)
+    with pytest.raises(ValueError):
+        _kernels.probe_vnext(w, 8192, 0)
+    with pytest.raises(ValueError):
+        _kernels.probe_vnext(w[:1000], 64, 0)

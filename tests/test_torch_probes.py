@@ -401,15 +401,14 @@ def test_common_reductions():
     assert torch.equal(w, _common.random_words(8, "cpu", 3))
 
 
-# --- utils: profiling is the port's, metrics and debug are shared -------
+# --- utils: profiling, metrics and debug are the port's own -------------
 
 
 def test_profiling_is_the_ports_and_runs_without_jax(tmp_path):
     """With jax blocked from import: `csv_simd_tpu_torch.utils.profiling`
     is the port's torch module, device_trace yields its directory and
     writes a Chrome trace in which a `named` span shows; debug and
-    metrics load from the shared sources under the port's name; _host
-    binds dotted names on their parent."""
+    metrics are the port's own copies under utils/."""
     code = (
         "import os, sys\n"
         "sys.modules['jax'] = None\n"
@@ -419,7 +418,10 @@ def test_profiling_is_the_ports_and_runs_without_jax(tmp_path):
         "name = 'csv_simd_tpu_torch.utils.profiling'\n"
         "assert profiling is sys.modules[name]\n"
         "assert profiling.__file__.endswith(os.path.join("
-        "'csv_simd_tpu_torch', 'profiling.py')), profiling.__file__\n"
+        "'csv_simd_tpu_torch', 'utils', 'profiling.py')), "
+        "profiling.__file__\n"
+        "assert metrics.__file__.endswith(os.path.join("
+        "'csv_simd_tpu_torch', 'utils', 'metrics.py')), metrics.__file__\n"
         "assert not hasattr(ct, 'utils.profiling')\n"
         f"d = {str(tmp_path / 'trace')!r}\n"
         "with profiling.device_trace(d) as got:\n"
