@@ -27,7 +27,12 @@ Phases, each of which fails the run on any error:
    a device 1, tiles 8, 64 and 512, v4full against B1's narrow words),
    the v1-layout variants (kbench: words and last-tile count, full
    against B6) and the direct fold pack (vnext: against its plain
-   version and B3, and at 64 MiB against golden);
+   version and B3, and at 64 MiB against golden); the wide-store probes
+   (widestore_probe2: the strided gather and the mmL pack product;
+   widestore_probe3: the lane-window sum and the mmLb product, one
+   product kernel for both) at 8 to 8,000 rows, on full-range int32 with
+   both probes' weights and random int8 weights, and the four TPU probes
+   on their own inputs, each printed as `probe[name]: BIT-EXACT`;
 3. the offsets-free path at 1 GiB (the wide-table configuration):
    create_packed on a 1 GiB CSV made of the data rows of one 64 MiB
    synthetic_wide_table block repeated after its header, a warm-up batch
@@ -54,14 +59,18 @@ Phases, each of which fails the run on any error:
    probe's wide ceiling; and the labs at 64 MiB and 1 GiB: B1's stage
    cuts beside B1, B3 and B4 (ablate2), the v1-layout variants beside B6
    (kbench, on the same random words as bytes) and the direct fold pack
-   beside B3 (vnext). Probe kernels are timed from CUDA graphs (the
-   kernels alone) and from eager launches;
+   beside B3 (vnext); the wide-store probes at 64 MiB and 1 GiB: the
+   gather and mmL on the (rows, 128) words, the lane sum and mmLb on
+   their (rows/8, 1024) view. Probe kernels are timed from CUDA graphs
+   (the kernels alone) and from eager launches; one PyTorch call that
+   computes a probe's function is timed beside it where there is one;
 7. a torch.profiler trace (utils.profiling.device_trace) of a warm
    create_packed and a warm create at 1 GiB: the five device ops that
    took the most time and the device-busy share of the traced window.
    The trace must name B1's and B3's kernels. A second trace gives each
-   probe and lab kernel's device time a launch at 64 MiB, with B1's
-   pass B (`mask_pack`) beside the v4full cut's (`ablate2_pass<8>`).
+   probe and lab kernel's device time a launch at 64 MiB (the wide-store
+   kernels among them), with B1's pass B (`mask_pack`) beside the v4full
+   cut's (`ablate2_pass<8>`).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -100,6 +109,9 @@ DIALECTS = ({}, dict(delimiter=0x3B, quote=0x27), dict(quote=0xA2))
 # logic and shifts issue on the same lanes)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
+# dense int8 on the tensor cores (the same data sheet), for the pack
+# products' multiply-adds, two operations each
+INT8_TC_OPS_PER_S = 1.979e15
 # aten ops that move or make data without computing on it
 _FREE_OPS = {"view", "_unsafe_view", "slice", "select", "expand", "reshape",
              "clone", "copy_", "cat", "empty", "zeros", "ones", "full",
@@ -114,7 +126,13 @@ _FREE_OPS = {"view", "_unsafe_view", "slice", "select", "expand", "reshape",
 GATED = ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
          "stage1_v2", "stage1_v1", "stage1_v4_emit", "dma_probe",
          "dma_probe2.write", "dma_probe2.read", "vpu_roofline", "ablate",
-         "ablate2", "kbench", "vnext")
+         "ablate2", "kbench", "vnext", "widestore_probe2.s8_st16",
+         "widestore_probe2.mmL", "widestore_probe3.laneload",
+         "widestore_probe3.mmLb")
+# the gather reads 64 of each input row's 512 bytes; a pack product's
+# work is its multiply-adds, which its plain version's op count misses
+READS_AN_EIGHTH = ("widestore_probe2.s8_st16",)
+PRODUCTS = ("widestore_probe2.mmL", "widestore_probe3.mmLb")
 
 
 class Gate:
@@ -166,14 +184,19 @@ def plain_work(fn) -> tuple:
 
 def bounds(timed: dict, hi_ops: int) -> dict:
     """{kernel: (bound ms, "bytes" or "operations", bytes moved,
-    operations)} for the inputs each
+    operations, their peak rate)} for the inputs each
     kernel was timed on ({kernel: input bytes}): the operations and the
     output bytes of its plain version, counted on a 256 KiB CPU input
     and scaled by input size (each grows with it), the input read once
     and the output written once, against the card's peaks. B6's and the
     v1 variants' plain versions compute on one byte an int32; their
     operations are counted on B1's plain version (four bytes an int32)
-    over the same bytes, the same mask in fewer operations."""
+    over the same bytes, the same mask in fewer operations.
+    Two cases count what the function needs instead: the wide-store
+    gather reads 1/8 of its input (lanes 0-15 of each row), and a pack
+    product does a multiply-add (two operations, on the int8 tensor
+    cores) for each int32 of x and each of W's 128 columns, and reads W,
+    where `plain_work` would charge one operation an output element."""
     from csv_simd_tpu_torch.config import DEFAULT_DIALECT as d
     from csv_simd_tpu_torch.offsetfree import _prefix_for_packed_xla
     from csv_simd_tpu_torch.ops.stage1_pallas import _stage1_pallas_plain
@@ -193,10 +216,14 @@ def bounds(timed: dict, hi_ops: int) -> dict:
         kbench,
         vnext,
         vpu_roofline,
+        widestore_probe2,
+        widestore_probe3,
     )
     from csv_simd_tpu_torch.tools._common import csv_words
 
     w = csv_words(512, "cpu", 5)
+    wide = w.view(-1, 1024)
+    w_l, w_lb = widestore_probe2.weights_mmL(), widestore_probe3.weights_mmLb()
     b = w.view(torch.uint8).view(-1, 128)
     packed = _stage1_v4_plain(w.view(-1), 0, d, False)[0]
 
@@ -222,6 +249,14 @@ def bounds(timed: dict, hi_ops: int) -> dict:
         "ablate2": (w, lambda: ablate2.plain(w, "v4full", 512, 1)),
         "kbench": (b, lambda: kbench._variant_plain(b, "roll", 1024, 1)),
         "vnext": (w, lambda: vnext._vnext_plain(w, 512, 1, True)),
+        "widestore_probe2.s8_st16": (w, lambda: widestore_probe2._gather_plain(
+            w)),
+        "widestore_probe2.mmL": (w, lambda: widestore_probe2._packmm_plain(
+            wide, w_l)),
+        "widestore_probe3.laneload": (
+            w, lambda: widestore_probe3._lanesum_plain(wide)),
+        "widestore_probe3.mmLb": (w, lambda: widestore_probe2._packmm_plain(
+            wide, w_lb)),
     }
     swar_ops = plain_work(plain["stage1_v4"][1])[0]
     out = {}
@@ -231,12 +266,17 @@ def bounds(timed: dict, hi_ops: int) -> dict:
         if name in ("stage1_v1", "kbench"):
             ops = swar_ops
         scale = n_in / (x.numel() * x.element_size())
-        moved = n_in + out_bytes * scale
+        read = n_in / 8 if name in READS_AN_EIGHTH else n_in
+        moved = read + out_bytes * scale
+        ops, rate = ops * scale, INT32_OPS_PER_S
+        if name in PRODUCTS:
+            ops, rate = 2 * 128 * (n_in // 4), INT8_TC_OPS_PER_S
+            moved += w_l.numel()
         by_bytes = moved / HBM_BYTES_PER_S
-        by_ops = ops * scale / INT32_OPS_PER_S
+        by_ops = ops / rate
         out[name] = ((max(by_bytes, by_ops) * 1e3),
                      "bytes" if by_bytes >= by_ops else "operations",
-                     moved, ops * scale)
+                     moved, ops, rate)
     return out
 
 
@@ -495,7 +535,8 @@ def gate_pack_block(gate: Gate, device, block: bytes, golden) -> dict:
 
 def gate_probes(gate: Gate, device) -> None:
     """Each probe and lab kernel, outputs and side words, against its
-    plain version at several sizes and carries (the tools' own gates)."""
+    plain version at several sizes and carries (the tools' own gates);
+    each wide-store probe under its own name."""
     from csv_simd_tpu_torch.tools import (
         ablate,
         ablate2,
@@ -503,6 +544,8 @@ def gate_probes(gate: Gate, device) -> None:
         kbench,
         vnext,
         vpu_roofline,
+        widestore_probe2,
+        widestore_probe3,
     )
 
     stream = dma_probe.gate(device)
@@ -513,6 +556,10 @@ def gate_probes(gate: Gate, device) -> None:
     for name, tool in (("ablate2", ablate2), ("kbench", kbench),
                        ("vnext", vnext)):
         gate.record(name, tool.gate(device))
+    for tool in (widestore_probe2, widestore_probe3):
+        prefix = tool.__name__.rsplit(".", 1)[1]
+        for name, result in tool.gate(device).items():
+            gate.record(f"{prefix}.{name}", result)
 
 
 def _device_ops(trace_path: str) -> tuple:
@@ -552,8 +599,9 @@ def probe_trace(words: torch.Tensor) -> dict:
     """{kernel: (mean device ms a launch, launches)} from a torch.profiler
     trace of five calls of every stream and ablation mode (tile 512), of
     B1's narrow build, every B1 stage cut, every v1-layout variant (the
-    words as bytes) and the direct fold pack, and two of every ALU op
-    count and mix on words."""
+    words as bytes), the direct fold pack and the wide-store gather, lane
+    sum and both pack products (on the words and their (rows/8, 1024)
+    view), and two of every ALU op count and mix on words."""
     from csv_simd_tpu_torch import _kernels
     from csv_simd_tpu_torch.ops.stage1_v4 import stage1_fused_v4
     from csv_simd_tpu_torch.tools import (
@@ -563,10 +611,15 @@ def probe_trace(words: torch.Tensor) -> dict:
         kbench,
         vnext,
         vpu_roofline,
+        widestore_probe2,
+        widestore_probe3,
     )
     from csv_simd_tpu_torch.utils import profiling
 
     as_bytes = kbench.as_bytes(words)
+    wide = words.view(-1, 1024)
+    w_l = widestore_probe2.weights_mmL().to(words.device)
+    w_lb = widestore_probe3.weights_mmLb().to(words.device)
     with tempfile.TemporaryDirectory() as trace_dir:
         with profiling.device_trace(trace_dir):
             for _ in range(5):
@@ -581,6 +634,10 @@ def probe_trace(words: torch.Tensor) -> dict:
                 for name in ("nopar", "lanescan", "roll"):
                     kbench.make_variant(as_bytes, name, 1024, 1)
                 vnext.make(words, 512, 1, directpack=True)
+                widestore_probe2.s8_st16(words)
+                widestore_probe2.mm_lanes(words, w_l)
+                widestore_probe3.laneload(wide)
+                widestore_probe3.mm_lanes_b(wide, w_lb)
             for _ in range(2):
                 for n_ops in _kernels.probe_alu_op_counts():
                     for mix in vpu_roofline.MIXES:
@@ -811,9 +868,16 @@ def main() -> int:
         vnext,
         vpu_roofline,
         widestore_probe,
+        widestore_probe2,
+        widestore_probe3,
     )
     from csv_simd_tpu_torch.tools._common import card as card_info
-    from csv_simd_tpu_torch.tools._common import cuda_ms, random_words
+    from csv_simd_tpu_torch.tools._common import (
+        cuda_ms,
+        graph_ms,
+        random_words,
+        report_probes,
+    )
     from csv_simd_tpu_torch.utils import profiling
     from corpus import all_cases, synthetic_wide_table
 
@@ -849,6 +913,9 @@ def main() -> int:
     # the direct fold pack at 64 MiB against B3 and golden
     gate.record("vnext", vnext.check(blk["words"]))
     gate_probes(gate, device)
+    if not report_probes(widestore_probe2.PROBES + widestore_probe3.PROBES,
+                         device):
+        raise AssertionError("a wide-store probe is not bit-exact")
     print("gate: " + ", ".join(f"{k} {v}" for k, v in gate.checks.items())
           + f" comparisons, all bit-identical "
           f"({time.perf_counter() - t0:.1f} s)")
@@ -1013,6 +1080,7 @@ def main() -> int:
     stream, l_dma1, l_dma2w, l_dma2r = {}, {}, {}, {}
     abl, l_abl = {}, {}
     ab2, l_ab2, kb, l_kb, vn, l_vn = {}, {}, {}, {}, {}, {}
+    ws2, l_ws2, ws3, l_ws3 = {}, {}, {}, {}
     rnd = {"64 MiB": random_words(BLOCK_BYTES // 512, device, 64),
            "1 GiB": random_words(16 * BLOCK_BYTES // 512, device, 1024)}
     for at, w in rnd.items():
@@ -1046,17 +1114,51 @@ def main() -> int:
         gate.record("vnext", vnext.check_timed(w))
         vn[at], l_vn[at] = driven(vnext.run, w)
         need(l_vn[at], "probe_vnext", 2, f"vnext.run at {at}")
+        # the wide-store probes: the gather and mmL on the (rows, 128)
+        # words, the lane sum and mmLb on their (rows/8, 1024) view
+        for tool, x, times, launched, kernels in (
+                (widestore_probe2, w, ws2, l_ws2,
+                 ("probe_ws_gather", "probe_ws_packmm")),
+                (widestore_probe3, w.view(-1, 1024), ws3, l_ws3,
+                 ("probe_ws_lanesum", "probe_ws_packmm"))):
+            prefix = tool.__name__.rsplit(".", 1)[1]
+            for name, result in tool.check(x).items():
+                gate.record(f"{prefix}.{name}", result)
+            times[at], launched[at] = driven(tool.run, x)
+            for kernel in kernels:
+                need(launched[at], kernel, 1, f"{prefix}.run at {at}")
     ms["ablate2"] = ab2["1 GiB"]["v4full:512"]["ms"]
     ms["ablate2_plain"] = ab2["1 GiB"]["v4full:512"]["plain_ms"]
     ms["kbench"] = kb["1 GiB"]["roll:1024"]["ms"]
     ms["kbench_plain"] = kb["1 GiB"]["roll:1024"]["plain_ms"]
     ms["vnext"] = vn["1 GiB"]["directpack"]["ms"]
     ms["vnext_plain"] = vn["1 GiB"]["directpack"]["plain_ms"]
-    # the one library call that computes a probe's function: the read
-    # probe's (64, 128)-block sums are one int32 sum
+    for prefix, times in (("widestore_probe2", ws2),
+                          ("widestore_probe3", ws3)):
+        for name, v in times["1 GiB"].items():
+            ms[f"{prefix}.{name}"] = v["ms"]
+            ms[f"{prefix}.{name}_plain"] = v["plain_ms"]
+    # the library calls that compute a probe's function: the read
+    # probe's (64, 128)-block sums are one int32 sum; the gather is a
+    # strided copy, the lane sum one int32 sum; with the probes' weights,
+    # whose block products lie in disjoint columns, each pack product is
+    # the int8 cast and one int8 product, the weights laid out once in
+    # the column-major order cuBLASLt takes (timed from CUDA graphs, as
+    # the wide-store kernels are)
     big_w = rnd["1 GiB"]
     library_ms = {"dma_probe2.read": cuda_ms(lambda: big_w.view(
         -1, 64 * 128).sum(1, dtype=torch.int32), 20)}
+    w_l = widestore_probe2.weights_mmL().to(device).t().contiguous().t()
+    w_lb = widestore_probe3.weights_mmLb().to(device).t().contiguous().t()
+    library_ms.update({
+        "widestore_probe2.s8_st16": graph_ms(lambda: big_w.view(
+            -1, 8, 128)[:, :, :16].reshape(-1, 128), 20),
+        "widestore_probe3.laneload": graph_ms(lambda: big_w.view(
+            -1, 8, 128).sum(1, dtype=torch.int32), 20),
+        "widestore_probe2.mmL": graph_ms(lambda: torch._int_mm(
+            big_w.to(torch.int8).view(-1, 1024), w_l), 20),
+        "widestore_probe3.mmLb": graph_ms(lambda: torch._int_mm(
+            big_w.view(-1, 1024).to(torch.int8), w_lb), 20)})
     del big_w
     big = stream["1 GiB"]
     ms["dma_probe"] = big["dma_probe"]["narrow"]["ms"]
@@ -1207,6 +1309,15 @@ def main() -> int:
                       f"{k} {v['gbps']:.1f} ({v['ms']:.4f} / "
                       f"{v['eager_ms']:.4f} / {v['plain_ms']:.2f})"
                       for k, v in res.items()))
+    for at in ("64 MiB", "1 GiB"):
+        print(f"wide-store probes at {at} on {card} (GB/s of input, CUDA "
+              "graph; graph ms / eager ms / plain ms): " + ", ".join(
+                  f"{k} {v['gbps']:.1f} ({v['ms']:.4f} / "
+                  f"{v['eager_ms']:.4f} / {v['plain_ms']:.2f})"
+                  for times in (ws2[at], ws3[at])
+                  for k, v in times.items()))
+    print(f"library calls at 1 GiB on {card} (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in library_ms.items()))
     pass_b = {k: v for k, v in probe_ops.items()
               if k.startswith(("mask_pack", "ablate2_pass<8>",
                                "chunk_parity"))}
@@ -1261,6 +1372,18 @@ def main() -> int:
          "probe_kbench", _sum(l_kb), "kbench"),
         ("vnext", "cuda", "probe_vnext.cu", "tools/vnext.py:85",
          "probe_vnext", _sum(l_vn), "vnext"),
+        ("widestore_probe2.s8_st16", "cuda", "probe_widestore.cu",
+         "tools/widestore_probe2.py:44", "probe_ws_gather", _sum(l_ws2),
+         "widestore_probe2.s8_st16"),
+        ("widestore_probe2.mmL", "cuda", "probe_widestore.cu",
+         "tools/widestore_probe2.py:87", "probe_ws_packmm", _sum(l_ws2),
+         "widestore_probe2.mmL"),
+        ("widestore_probe3.laneload", "cuda", "probe_widestore.cu",
+         "tools/widestore_probe3.py:41", "probe_ws_lanesum", _sum(l_ws3),
+         "widestore_probe3.laneload"),
+        ("widestore_probe3.mmLb", "cuda", "probe_widestore.cu",
+         "tools/widestore_probe3.py:75", "probe_ws_packmm", _sum(l_ws3),
+         "widestore_probe3.mmLb"),
     )
     # the input bytes each kernel's `ms` was timed on
     gib, blk_words = padded_rows(size) * ROW_BYTES, BLOCK_BYTES
@@ -1270,7 +1393,9 @@ def main() -> int:
              "dma_probe": 16 * blk_words, "dma_probe2.write": 16 * blk_words,
              "dma_probe2.read": 16 * blk_words, "vpu_roofline": blk_words,
              "ablate": blk_words, "ablate2": 16 * blk_words,
-             "kbench": 16 * blk_words, "vnext": 16 * blk_words}
+             "kbench": 16 * blk_words, "vnext": 16 * blk_words,
+             **{name: 16 * blk_words for name in GATED
+                if name.startswith("widestore_probe")}}
     bound = bounds(timed, hi)
     kernels = [
         {"name": name, "route": route_, "source": src + source,
@@ -1284,18 +1409,27 @@ def main() -> int:
     ]
     print(f"bounds on {card} (the least time for the timed inputs at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s and "
-          f"{INT32_OPS_PER_S / 1e12:.1f} T ops/s; ms / bound): " + ", ".join(
+          f"{INT32_OPS_PER_S / 1e12:.1f} T int32 ops/s, the pack products "
+          f"at {INT8_TC_OPS_PER_S / 1e12:.0f} T int8 ops/s; ms / bound): "
+          + ", ".join(
               f"{k['name']} {k['ms']:.4f} / {k['bound_ms']:.4f} "
               f"{k['bound_by']}" for k in kernels))
     # the same work at the rates this run measured: the stream probe's
     # wide mode (it reads N and writes N/8) and the ALU probe's alu mix
+    # (the pack products' int8 operations at the data-sheet rate: no
+    # probe measures it)
     traffic = ceiling * 1e9 * 1.125
     alu_rate = alu["alu"]["t_ops_per_s"] * 1e12
+
+    def at_measured(b) -> float:
+        rate = alu_rate if b[4] == INT32_OPS_PER_S else b[4]
+        return max(b[2] / traffic, b[3] / rate) * 1e3
+
     print(f"bounds at this card's measured rates ({traffic / 1e12:.3f} TB/s "
-          f"of traffic, {alu_rate / 1e12:.3f} T ops/s; ms, bytes moved, "
-          "operations): " + ", ".join(
-              f"{name} {max(b[2] / traffic, b[3] / alu_rate) * 1e3:.4f} "
-              f"({b[2]:.4g} B, {b[3]:.4g} ops)" for name, b in bound.items()))
+          f"of traffic, {alu_rate / 1e12:.3f} T int32 ops/s; ms, bytes "
+          "moved, operations): " + ", ".join(
+              f"{name} {at_measured(b):.4f} ({b[2]:.4g} B, {b[3]:.4g} ops)"
+              for name, b in bound.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

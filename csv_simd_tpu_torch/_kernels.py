@@ -40,7 +40,8 @@ LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
             "stage1_fold": 0, "stage1_v2": 0, "stage1_v1": 0,
             "probe_stream_write": 0, "probe_stream_read": 0, "probe_alu": 0,
             "probe_ablate": 0, "probe_ablate2": 0, "probe_kbench": 0,
-            "probe_vnext": 0}
+            "probe_vnext": 0, "probe_ws_gather": 0, "probe_ws_lanesum": 0,
+            "probe_ws_packmm": 0}
 # layout codes of csrc/stage1_pack.cu
 _FOLD, _V2, _V1 = 0, 1, 2
 
@@ -176,6 +177,12 @@ def _library():
         lib.csv_probe_vnext_chunks.restype = ll
         lib.csv_probe_vnext.argtypes = [vp, ll, i, vp, i, vp, vp, vp, vp, vp]
         lib.csv_probe_vnext.restype = i
+        lib.csv_probe_ws_gather.argtypes = [vp, ll, vp, vp]
+        lib.csv_probe_ws_gather.restype = i
+        lib.csv_probe_ws_lanesum.argtypes = [vp, ll, vp, vp]
+        lib.csv_probe_ws_lanesum.restype = i
+        lib.csv_probe_ws_packmm.argtypes = [vp, ll, vp, vp, i, vp]
+        lib.csv_probe_ws_packmm.restype = i
         lib.csv_cuda_error_string.argtypes = [i]
         lib.csv_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -617,3 +624,79 @@ def probe_vnext(words: torch.Tensor, tile: int, carry_in):
     _raise_on(err, "probe_vnext")
     LAUNCHES["probe_vnext"] += 1
     return out, scalars[0]
+
+
+def check_wide(x: torch.Tensor, what: str) -> int:
+    """Raise unless x is (M, 1024) int32 with M > 0, on any device (the
+    wide-store probes' (rows/8, 1024) view); returns M."""
+    if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != 1024:
+        raise ValueError(f"{what}: expected (M, 1024) int32, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.shape[0] == 0:
+        raise ValueError(f"{what}: expected at least one row")
+    return x.shape[0]
+
+
+def check_pack_weights(w: torch.Tensor, x: torch.Tensor, what: str) -> None:
+    """Raise unless w is (1024, 128) int8 on x's device."""
+    if w.dtype != torch.int8 or tuple(w.shape) != (1024, 128):
+        raise ValueError(f"{what}: expected (1024, 128) int8 weights, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    if w.device != x.device:
+        raise ValueError(f"{what}: weights on {w.device}, input on "
+                         f"{x.device}")
+
+
+def probe_ws_gather(words: torch.Tensor) -> torch.Tensor:
+    """csrc/probe_widestore.cu's gather on CUDA (rows, 128) int32, rows %
+    8 == 0 -> (rows/8, 128) int32, out[r, 16s + j] = words[8r + s, j] for
+    s < 8, j < 16."""
+    rows = _check_rows128(words, "probe_ws_gather", 8)
+    lib = _library()
+    dev = words.device
+    with torch.cuda.device(dev):
+        out = torch.empty((rows // 8, 128), dtype=torch.int32, device=dev)
+        err = lib.csv_probe_ws_gather(
+            words.data_ptr(), rows, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_ws_gather")
+    LAUNCHES["probe_ws_gather"] += 1
+    return out
+
+
+def probe_ws_lanesum(x: torch.Tensor) -> torch.Tensor:
+    """csrc/probe_widestore.cu's lane sum on CUDA (M, 1024) int32 -> (M,
+    128) int32, the wrapping sum of the 8 lane windows."""
+    _check_words(x, "probe_ws_lanesum")
+    m = check_wide(x, "probe_ws_lanesum")
+    lib = _library()
+    dev = x.device
+    with torch.cuda.device(dev):
+        out = torch.empty((m, 128), dtype=torch.int32, device=dev)
+        err = lib.csv_probe_ws_lanesum(
+            x.data_ptr(), m, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_ws_lanesum")
+    LAUNCHES["probe_ws_lanesum"] += 1
+    return out
+
+
+def probe_ws_packmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """csrc/probe_widestore.cu's pack product on CUDA (M, 1024) int32 and
+    (1024, 128) int8 -> (M, 128) int32: the OR over k < 8 of
+    int8(x[:, 128k:128k+128]) @ w[128k:128k+128], in int32."""
+    _check_words(x, "probe_ws_packmm")
+    m = check_wide(x, "probe_ws_packmm")
+    _check_words(w, "probe_ws_packmm weights", torch.int8)
+    check_pack_weights(w, x, "probe_ws_packmm")
+    lib = _library()
+    dev = x.device
+    with torch.cuda.device(dev):
+        out = torch.empty((m, 128), dtype=torch.int32, device=dev)
+        err = lib.csv_probe_ws_packmm(
+            x.data_ptr(), m, w.data_ptr(), out.data_ptr(),
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_ws_packmm")
+    LAUNCHES["probe_ws_packmm"] += 1
+    return out

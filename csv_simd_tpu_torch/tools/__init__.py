@@ -16,10 +16,17 @@ rebuilt on the card's own kernels, with the JAX tools' names.
         B6's v1 layout with its quote masking cut back, beside B6
     python -m csv_simd_tpu_torch.tools.vnext [bench|check [FILE.csv]]
         the atomic-free direct fold pack beside B3
+    python -m csv_simd_tpu_torch.tools.widestore_probe2 [mb ...]
+        the strided 16-lane gather (s8+st16) and the lane-placed int8
+        pack product (mmL) on (rows, 128) words
+    python -m csv_simd_tpu_torch.tools.widestore_probe3 [mb ...]
+        the lane-window sum (laneload) and the same pack product (mmLb)
+        on the (rows/8, 1024) view
 
 Each runs on one NVIDIA card (and exits 2 without one), holds its kernel
 against the plain PyTorch version first, exits non-zero on any mismatch,
 and prints one JSON line of results, with the card's name and power
-limit. Times are CUDA-event means over many launches after a warm-up,
+limit; the wide-store tools first print the JAX tools' `probe[name]:
+BIT-EXACT` lines. Times are CUDA-event means over many launches after a warm-up,
 taken in turns when a tool compares several versions.
 """

@@ -163,3 +163,16 @@ def need_card(tool: str) -> torch.device:
 
 def emit(result: dict) -> None:
     print(json.dumps(result), flush=True)
+
+
+def report_probes(probes, device) -> bool:
+    """Run each (name, fn) of a tool's TPU probes on `device` and print
+    `probe[name]: BIT-EXACT` or `WRONG VALUES`, as the JAX tools print
+    them; True when every one is bit-exact."""
+    ok = True
+    for name, fn in probes:
+        good = fn(device)
+        print(f"probe[{name}]: {'BIT-EXACT' if good else 'WRONG VALUES'}",
+              flush=True)
+        ok = ok and good
+    return ok

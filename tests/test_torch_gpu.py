@@ -485,3 +485,85 @@ def test_lab_kernels_reject_bad_input(cuda_device):
         _kernels.probe_vnext(w, 8192, 0)
     with pytest.raises(ValueError):
         _kernels.probe_vnext(w[:1000], 64, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 7, 64, 65, 1000, 4097])
+def test_widestore_kernels_match_plain(cuda_device, m):
+    """The gather and the lane sum, and the pack product with both
+    probes' weights and random int8 weights, against their plain versions
+    at M rows of the (M, 1024) view (8M of the (rows, 128) words); each
+    call launches its kernel once."""
+    from csv_simd_tpu_torch.tools import widestore_probe2 as ws2
+    from csv_simd_tpu_torch.tools import widestore_probe3 as ws3
+    from csv_simd_tpu_torch.tools._common import random_words
+
+    x = random_words(8 * m, cuda_device, m)
+    wide = x.view(-1, 1024)
+    before = _kernels.launch_counts()
+    _same((ws2.s8_st16(x), ws3.laneload(wide)),
+          (ws2._gather_plain(x), ws3._lanesum_plain(wide)))
+    weights = ws2.weight_sets(cuda_device)
+    for w in weights.values():
+        _same((ws2.mm_lanes(x, w), ws3.mm_lanes_b(wide, w)),
+              (ws2._packmm_plain(wide, w),) * 2)
+    after = _kernels.launch_counts()
+    assert after["probe_ws_gather"] == before["probe_ws_gather"] + 1
+    assert after["probe_ws_lanesum"] == before["probe_ws_lanesum"] + 1
+    assert after["probe_ws_packmm"] == \
+        before["probe_ws_packmm"] + 2 * len(weights)
+
+
+@pytest.mark.gpu
+def test_widestore_tpu_probes_bit_exact_on_card(cuda_device):
+    from csv_simd_tpu_torch.tools import widestore_probe2 as ws2
+    from csv_simd_tpu_torch.tools import widestore_probe3 as ws3
+
+    before = _kernels.launch_counts()
+    for _name, probe in ws2.PROBES + ws3.PROBES:
+        assert probe(cuda_device)
+    after = _kernels.launch_counts()
+    for kernel, n in (("probe_ws_gather", 1), ("probe_ws_lanesum", 1),
+                      ("probe_ws_packmm", 2)):
+        assert after[kernel] == before[kernel] + n
+
+
+@pytest.mark.gpu
+def test_widestore_kernels_reject_bad_input(cuda_device):
+    x = torch.zeros((64, 1024), dtype=torch.int32, device=cuda_device)
+    w = torch.zeros((1024, 128), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):
+        _kernels.probe_ws_gather(x.view(-1, 128)[:100])
+    with pytest.raises(ValueError):
+        _kernels.probe_ws_lanesum(x[:, :512])
+    with pytest.raises(ValueError):
+        _kernels.probe_ws_packmm(x.cpu(), w)
+    with pytest.raises(ValueError):
+        _kernels.probe_ws_packmm(x, w.to(torch.uint8))
+    with pytest.raises(ValueError):
+        _kernels.probe_ws_packmm(x, w[:512])
+    with pytest.raises(ValueError):
+        _kernels.probe_ws_packmm(x, w.t())
+
+
+@pytest.mark.gpu
+def test_widestore_tools_gate_check_and_run_on_card(cuda_device):
+    """Each tool's gate, its check of the timed input and a short run,
+    as chip_smoke.py and `python -m` drive them."""
+    from csv_simd_tpu_torch.tools import widestore_probe2 as ws2
+    from csv_simd_tpu_torch.tools import widestore_probe3 as ws3
+    from csv_simd_tpu_torch.tools._common import random_words
+
+    assert ws2.gate(cuda_device) == {
+        "s8_st16": {"checks": 8, "max_abs_err": 0},
+        "mmL": {"checks": 22, "max_abs_err": 0}}
+    assert ws3.gate(cuda_device) == {
+        "laneload": {"checks": 8, "max_abs_err": 0},
+        "mmLb": {"checks": 22, "max_abs_err": 0}}
+    w = random_words(8192, cuda_device, 1)
+    one = {"checks": 1, "max_abs_err": 0}
+    assert ws2.check(w) == {"s8_st16": one, "mmL": one}
+    assert ws3.check(w.view(-1, 1024)) == {"laneload": one, "mmLb": one}
+    for got in (ws2.run(w, reps=2, plain_reps=1),
+                ws3.run(w.view(-1, 1024), reps=2, plain_reps=1)):
+        assert all(v["ms"] > 0 and v["plain_ms"] > 0 for v in got.values())
