@@ -32,7 +32,15 @@ Phases, each of which fails the run on any error:
    widestore_probe3: the lane-window sum and the mmLb product, one
    product kernel for both) at 8 to 8,000 rows, on full-range int32 with
    both probes' weights and random int8 weights, and the four TPU probes
-   on their own inputs, each printed as `probe[name]: BIT-EXACT`;
+   on their own inputs, each printed as `probe[name]: BIT-EXACT`; the
+   Mosaic probes' six kernels (mosaic_probes: the (T,32) pack product for
+   both matmul probes, the int8 lane gather, cmp8, select8, the row
+   shift-add and the uint32 sum) at 8 to 8,000 rows on full-range inputs
+   (the product also on |v| <= 256, the gather also on indices outside
+   [0, 128)) and the TPU tool's eight probe lines, each `fixed`; the
+   tensor-core concat product (widestore_probe4) at M = 1 to 4,097 with
+   the probe's, random and all -128 int8 weights, and its
+   `probe[concat1024+mm]: BIT-EXACT`;
 3. the offsets-free path at 1 GiB (the wide-table configuration):
    create_packed on a 1 GiB CSV made of the data rows of one 64 MiB
    synthetic_wide_table block repeated after its header, a warm-up batch
@@ -61,7 +69,9 @@ Phases, each of which fails the run on any error:
    (kbench, on the same random words as bytes) and the direct fold pack
    beside B3 (vnext); the wide-store probes at 64 MiB and 1 GiB: the
    gather and mmL on the (rows, 128) words, the lane sum and mmLb on
-   their (rows/8, 1024) view. Probe kernels are timed from CUDA graphs
+   their (rows/8, 1024) view, and the concat product on that view; the
+   Mosaic probes' kernels on 64 MiB of their first input. Probe kernels
+   are timed from CUDA graphs
    (the kernels alone) and from eager launches; one PyTorch call that
    computes a probe's function is timed beside it where there is one;
 7. a torch.profiler trace (utils.profiling.device_trace) of a warm
@@ -70,7 +80,8 @@ Phases, each of which fails the run on any error:
    The trace must name B1's and B3's kernels. A second trace gives each
    probe and lab kernel's device time a launch at 64 MiB (the wide-store
    kernels among them), with B1's pass B (`mask_pack`) beside the v4full
-   cut's (`ablate2_pass<8>`).
+   cut's (`ablate2_pass<8>`); it must name the Mosaic probes' kernels and
+   `concat_mm`.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -128,11 +139,20 @@ GATED = ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
          "dma_probe2.write", "dma_probe2.read", "vpu_roofline", "ablate",
          "ablate2", "kbench", "vnext", "widestore_probe2.s8_st16",
          "widestore_probe2.mmL", "widestore_probe3.laneload",
-         "widestore_probe3.mmLb")
+         "widestore_probe3.mmLb", "mosaic_probes.matmul32_slice",
+         "mosaic_probes.matmul32_roll", "mosaic_probes.int8_lane_gather",
+         "mosaic_probes.cmp8", "mosaic_probes.select8",
+         "mosaic_probes.sublane_concat", "mosaic_probes.unsigned_reduce",
+         "widestore_probe4.concat_mm")
 # the gather reads 64 of each input row's 512 bytes; a pack product's
 # work is its multiply-adds, which its plain version's op count misses
 READS_AN_EIGHTH = ("widestore_probe2.s8_st16",)
-PRODUCTS = ("widestore_probe2.mmL", "widestore_probe3.mmLb")
+PRODUCTS = ("widestore_probe2.mmL", "widestore_probe3.mmLb",
+            "widestore_probe4.concat_mm")
+# the Mosaic probes' line in tools/mosaic_probes.py and its port function
+MOSAIC_LINES = {"matmul32_slice": 100, "matmul32_roll": 113,
+                "int8_lane_gather": 127, "cmp8": 139, "select8": 149,
+                "sublane_concat": 160, "unsigned_reduce": 172}
 
 
 class Gate:
@@ -187,7 +207,9 @@ def bounds(timed: dict, hi_ops: int) -> dict:
     operations, their peak rate)} for the inputs each
     kernel was timed on ({kernel: input bytes}): the operations and the
     output bytes of its plain version, counted on a 256 KiB CPU input
-    and scaled by input size (each grows with it), the input read once
+    (the Mosaic probes' on a 1/256 sample of their timed inputs: 256 KiB
+    of their first input) and scaled by input size (each grows with it),
+    the inputs read once
     and the output written once, against the card's peaks. B6's and the
     v1 variants' plain versions compute on one byte an int32; their
     operations are counted on B1's plain version (four bytes an int32)
@@ -196,7 +218,8 @@ def bounds(timed: dict, hi_ops: int) -> dict:
     gather reads 1/8 of its input (lanes 0-15 of each row), and a pack
     product does a multiply-add (two operations, on the int8 tensor
     cores) for each int32 of x and each of W's 128 columns, and reads W,
-    where `plain_work` would charge one operation an output element."""
+    where `plain_work` would charge one operation an output element (the
+    concat product's as much: it sums where the others OR)."""
     from csv_simd_tpu_torch.config import DEFAULT_DIALECT as d
     from csv_simd_tpu_torch.offsetfree import _prefix_for_packed_xla
     from csv_simd_tpu_torch.ops.stage1_pallas import _stage1_pallas_plain
@@ -214,10 +237,12 @@ def bounds(timed: dict, hi_ops: int) -> dict:
         ablate2,
         dma_probe,
         kbench,
+        mosaic_probes,
         vnext,
         vpu_roofline,
         widestore_probe2,
         widestore_probe3,
+        widestore_probe4,
     )
     from csv_simd_tpu_torch.tools._common import csv_words
 
@@ -257,7 +282,14 @@ def bounds(timed: dict, hi_ops: int) -> dict:
             w, lambda: widestore_probe3._lanesum_plain(wide)),
         "widestore_probe3.mmLb": (w, lambda: widestore_probe2._packmm_plain(
             wide, w_lb)),
+        "widestore_probe4.concat_mm": (
+            w, lambda: widestore_probe4._concat_mm_plain(wide, w_lb)),
     }
+    sample = mosaic_probes.timed_inputs("cpu", scale=256)
+    for probe, kernel in mosaic_probes.PROBE_KERNEL.items():
+        plain[f"mosaic_probes.{probe}"] = (
+            sample[kernel], lambda k=kernel: mosaic_probes.PLAIN[k](
+                *sample[k]))
     swar_ops = plain_work(plain["stage1_v4"][1])[0]
     out = {}
     for name, n_in in timed.items():
@@ -265,7 +297,8 @@ def bounds(timed: dict, hi_ops: int) -> dict:
         ops, out_bytes = plain_work(fn)
         if name in ("stage1_v1", "kbench"):
             ops = swar_ops
-        scale = n_in / (x.numel() * x.element_size())
+        scale = n_in / sum(t.numel() * t.element_size() for t in
+                           (x if isinstance(x, tuple) else (x,)))
         read = n_in / 8 if name in READS_AN_EIGHTH else n_in
         moved = read + out_bytes * scale
         ops, rate = ops * scale, INT32_OPS_PER_S
@@ -536,16 +569,19 @@ def gate_pack_block(gate: Gate, device, block: bytes, golden) -> dict:
 def gate_probes(gate: Gate, device) -> None:
     """Each probe and lab kernel, outputs and side words, against its
     plain version at several sizes and carries (the tools' own gates);
-    each wide-store probe under its own name."""
+    each wide-store probe under its own name, each Mosaic probe under its
+    own name with its kernel's gate (the two matmul probes share one)."""
     from csv_simd_tpu_torch.tools import (
         ablate,
         ablate2,
         dma_probe,
         kbench,
+        mosaic_probes,
         vnext,
         vpu_roofline,
         widestore_probe2,
         widestore_probe3,
+        widestore_probe4,
     )
 
     stream = dma_probe.gate(device)
@@ -556,10 +592,20 @@ def gate_probes(gate: Gate, device) -> None:
     for name, tool in (("ablate2", ablate2), ("kbench", kbench),
                        ("vnext", vnext)):
         gate.record(name, tool.gate(device))
-    for tool in (widestore_probe2, widestore_probe3):
+    for tool in (widestore_probe2, widestore_probe3, widestore_probe4):
         prefix = tool.__name__.rsplit(".", 1)[1]
         for name, result in tool.gate(device).items():
             gate.record(f"{prefix}.{name}", result)
+    record_mosaic(gate, mosaic_probes.gate(device))
+
+
+def record_mosaic(gate: Gate, by_kernel: dict) -> None:
+    """A Mosaic tool result ({kernel: {checks, max_abs_err}}) under each
+    probe that runs the kernel."""
+    from csv_simd_tpu_torch.tools.mosaic_probes import PROBE_KERNEL
+
+    for probe, kernel in PROBE_KERNEL.items():
+        gate.record(f"mosaic_probes.{probe}", by_kernel[kernel])
 
 
 def _device_ops(trace_path: str) -> tuple:
@@ -601,7 +647,10 @@ def probe_trace(words: torch.Tensor) -> dict:
     B1's narrow build, every B1 stage cut, every v1-layout variant (the
     words as bytes), the direct fold pack and the wide-store gather, lane
     sum and both pack products (on the words and their (rows/8, 1024)
-    view), and two of every ALU op count and mix on words."""
+    view), the Mosaic probes' kernels (on the words, the words as bytes,
+    and for the gather a quarter of those bytes as the table and the words
+    & 127 as indices) and the concat product, and two of every ALU op
+    count and mix on words."""
     from csv_simd_tpu_torch import _kernels
     from csv_simd_tpu_torch.ops.stage1_v4 import stage1_fused_v4
     from csv_simd_tpu_torch.tools import (
@@ -609,10 +658,12 @@ def probe_trace(words: torch.Tensor) -> dict:
         ablate2,
         dma_probe,
         kbench,
+        mosaic_probes,
         vnext,
         vpu_roofline,
         widestore_probe2,
         widestore_probe3,
+        widestore_probe4,
     )
     from csv_simd_tpu_torch.utils import profiling
 
@@ -620,6 +671,9 @@ def probe_trace(words: torch.Tensor) -> dict:
     wide = words.view(-1, 1024)
     w_l = widestore_probe2.weights_mmL().to(words.device)
     w_lb = widestore_probe3.weights_mmLb().to(words.device)
+    w4 = widestore_probe4.weight_sets(words.device)["probe"]
+    lut = as_bytes[:words.shape[0]].view(torch.int8)
+    idx = words & 127
     with tempfile.TemporaryDirectory() as trace_dir:
         with profiling.device_trace(trace_dir):
             for _ in range(5):
@@ -638,6 +692,13 @@ def probe_trace(words: torch.Tensor) -> dict:
                 widestore_probe2.mm_lanes(words, w_l)
                 widestore_probe3.laneload(wide)
                 widestore_probe3.mm_lanes_b(wide, w_lb)
+                widestore_probe4.concat_mm(wide, w4)
+                mosaic_probes.mm32_pack(words)
+                mosaic_probes.lane_gather(lut, idx)
+                mosaic_probes.cmp8(as_bytes)
+                mosaic_probes.select8(as_bytes)
+                mosaic_probes.shift_add(words)
+                mosaic_probes.unsigned_sum(words)
             for _ in range(2):
                 for n_ops in _kernels.probe_alu_op_counts():
                     for mix in vpu_roofline.MIXES:
@@ -865,11 +926,13 @@ def main() -> int:
         ablate2,
         dma_probe,
         kbench,
+        mosaic_probes,
         vnext,
         vpu_roofline,
         widestore_probe,
         widestore_probe2,
         widestore_probe3,
+        widestore_probe4,
     )
     from csv_simd_tpu_torch.tools._common import card as card_info
     from csv_simd_tpu_torch.tools._common import (
@@ -913,9 +976,12 @@ def main() -> int:
     # the direct fold pack at 64 MiB against B3 and golden
     gate.record("vnext", vnext.check(blk["words"]))
     gate_probes(gate, device)
-    if not report_probes(widestore_probe2.PROBES + widestore_probe3.PROBES,
-                         device):
+    if not report_probes(widestore_probe2.PROBES + widestore_probe3.PROBES
+                         + widestore_probe4.PROBES, device):
         raise AssertionError("a wide-store probe is not bit-exact")
+    mosaic = mosaic_probes.report(device)
+    if set(mosaic.values()) != {"fixed"}:
+        raise AssertionError(f"a Mosaic probe is not fixed: {mosaic}")
     print("gate: " + ", ".join(f"{k} {v}" for k, v in gate.checks.items())
           + f" comparisons, all bit-identical "
           f"({time.perf_counter() - t0:.1f} s)")
@@ -1080,7 +1146,7 @@ def main() -> int:
     stream, l_dma1, l_dma2w, l_dma2r = {}, {}, {}, {}
     abl, l_abl = {}, {}
     ab2, l_ab2, kb, l_kb, vn, l_vn = {}, {}, {}, {}, {}, {}
-    ws2, l_ws2, ws3, l_ws3 = {}, {}, {}, {}
+    ws2, l_ws2, ws3, l_ws3, ws4, l_ws4 = {}, {}, {}, {}, {}, {}
     rnd = {"64 MiB": random_words(BLOCK_BYTES // 512, device, 64),
            "1 GiB": random_words(16 * BLOCK_BYTES // 512, device, 1024)}
     for at, w in rnd.items():
@@ -1127,6 +1193,11 @@ def main() -> int:
             times[at], launched[at] = driven(tool.run, x)
             for kernel in kernels:
                 need(launched[at], kernel, 1, f"{prefix}.run at {at}")
+        # the concat product on the (rows/8, 1024) view, as T10b/T11b
+        gate.record("widestore_probe4.concat_mm",
+                    widestore_probe4.check(w.view(-1, 1024))["concat_mm"])
+        ws4[at], l_ws4[at] = driven(widestore_probe4.run, w.view(-1, 1024))
+        need(l_ws4[at], "probe_concat_mm", 1, f"widestore_probe4.run at {at}")
     ms["ablate2"] = ab2["1 GiB"]["v4full:512"]["ms"]
     ms["ablate2_plain"] = ab2["1 GiB"]["v4full:512"]["plain_ms"]
     ms["kbench"] = kb["1 GiB"]["roll:1024"]["ms"]
@@ -1160,6 +1231,10 @@ def main() -> int:
         "widestore_probe3.mmLb": graph_ms(lambda: torch._int_mm(
             big_w.view(-1, 1024).to(torch.int8), w_lb), 20)})
     del big_w
+    t12 = ws4["1 GiB"]["concat_mm"]
+    ms["widestore_probe4.concat_mm"] = t12["ms"]
+    ms["widestore_probe4.concat_mm_plain"] = t12["plain_ms"]
+    library_ms["widestore_probe4.concat_mm"] = t12["library_ms"]
     big = stream["1 GiB"]
     ms["dma_probe"] = big["dma_probe"]["narrow"]["ms"]
     ms["dma_probe_plain"] = big["dma_probe"]["narrow"]["plain_ms"]
@@ -1177,7 +1252,21 @@ def main() -> int:
     ms["vpu_roofline"] = alu["alu"]["ms"][hi]
     ms["vpu_roofline_plain"] = vpu_roofline.plain_ms(rnd["64 MiB"], hi, "alu",
                                                      1)
-    del rnd, w, words, w2d
+    # the Mosaic probes' kernels on 64 MiB of their first input, each with
+    # its library call (checked against the plain version, then timed)
+    mosaic_in = mosaic_probes.timed_inputs(device)
+    record_mosaic(gate, mosaic_probes.check(mosaic_in))
+    mos, l_mos = driven(mosaic_probes.run, mosaic_in)
+    for counter in mosaic_probes.LAUNCH_COUNTER.values():
+        need(l_mos, counter, 1, "mosaic_probes.run")
+    mosaic_bytes = {k: mosaic_probes.input_bytes(v)
+                    for k, v in mosaic_in.items()}
+    for probe, kernel in mosaic_probes.PROBE_KERNEL.items():
+        name = f"mosaic_probes.{probe}"
+        ms[name] = mos[kernel]["ms"]
+        ms[name + "_plain"] = mos[kernel]["plain_ms"]
+        library_ms[name] = mos[kernel]["library_ms"]
+    del rnd, w, words, w2d, mosaic_in
     torch.cuda.empty_cache()
 
     # the first create_packed after CUDA graphs were captured in the
@@ -1238,6 +1327,10 @@ def main() -> int:
     # the probes' kernels in a second trace, at 64 MiB: device time a
     # launch by name, beside phase 6's graph and eager times
     probe_ops = probe_trace(random_words(BLOCK_BYTES // 512, device, 64))
+    for kernel in ("mm32_pack", "lane_gather", "cmp8", "select8", "shift_add",
+                   "usum", "concat_mm"):
+        if kernel not in probe_ops:
+            raise AssertionError(f"the probe trace names no {kernel}")
 
     gb = padded_rows(size) * ROW_BYTES / 1e9
     print(f"times on {card}:")
@@ -1316,8 +1409,21 @@ def main() -> int:
                   f"{v['eager_ms']:.4f} / {v['plain_ms']:.2f})"
                   for times in (ws2[at], ws3[at])
                   for k, v in times.items()))
-    print(f"library calls at 1 GiB on {card} (ms): " + ", ".join(
-        f"{k} {v:.4f}" for k, v in library_ms.items()))
+    for at in ("64 MiB", "1 GiB"):
+        v = ws4[at]["concat_mm"]
+        print(f"concat product at {at} on {card} (GB/s of x, CUDA graph; "
+              f"graph ms / eager ms / plain ms / library ms): "
+              f"{v['gbps']:.1f} ({v['ms']:.4f} / {v['eager_ms']:.4f} / "
+              f"{v['plain_ms']:.2f} / {v['library_ms']:.4f})")
+    print(f"Mosaic probe kernels at 64 MiB of their first input on {card} "
+          "(GB/s of input, CUDA graph; graph ms / eager ms / plain ms / "
+          "library ms): " + ", ".join(
+              f"{k} {v['gbps']:.1f} ({v['ms']:.4f} / {v['eager_ms']:.4f} / "
+              f"{v['plain_ms']:.2f} / {v['library_ms']:.4f})"
+              for k, v in mos.items()))
+    print(f"library calls on {card} (ms; the Mosaic probes' at 64 MiB, the "
+          "rest at 1 GiB): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in library_ms.items()))
     pass_b = {k: v for k, v in probe_ops.items()
               if k.startswith(("mask_pack", "ablate2_pass<8>",
                                "chunk_parity"))}
@@ -1384,6 +1490,14 @@ def main() -> int:
         ("widestore_probe3.mmLb", "cuda", "probe_widestore.cu",
          "tools/widestore_probe3.py:75", "probe_ws_packmm", _sum(l_ws3),
          "widestore_probe3.mmLb"),
+        *((f"mosaic_probes.{probe}", "cuda", "probe_mosaic.cu",
+           f"tools/mosaic_probes.py:{MOSAIC_LINES[probe]}",
+           mosaic_probes.LAUNCH_COUNTER[kernel], l_mos,
+           f"mosaic_probes.{probe}")
+          for probe, kernel in mosaic_probes.PROBE_KERNEL.items()),
+        ("widestore_probe4.concat_mm", "cuda", "probe_concatmm.cu",
+         "tools/widestore_probe4.py:40", "probe_concat_mm", _sum(l_ws4),
+         "widestore_probe4.concat_mm"),
     )
     # the input bytes each kernel's `ms` was timed on
     gib, blk_words = padded_rows(size) * ROW_BYTES, BLOCK_BYTES
@@ -1395,7 +1509,9 @@ def main() -> int:
              "ablate": blk_words, "ablate2": 16 * blk_words,
              "kbench": 16 * blk_words, "vnext": 16 * blk_words,
              **{name: 16 * blk_words for name in GATED
-                if name.startswith("widestore_probe")}}
+                if name.startswith("widestore_probe")},
+             **{f"mosaic_probes.{probe}": mosaic_bytes[kernel]
+                for probe, kernel in mosaic_probes.PROBE_KERNEL.items()}}
     bound = bounds(timed, hi)
     kernels = [
         {"name": name, "route": route_, "source": src + source,

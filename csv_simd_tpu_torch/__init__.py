@@ -18,9 +18,24 @@ which g++ builds into `_build/` at first use).
 
 from .api import create, create_from_bytes, create_packed
 from .artifact import load_tape, save_tape
-from .config import Dialect
+from .config import (
+    CODE_DELIM,
+    CODE_ESCAPE,
+    CODE_NEWLINE,
+    CODE_QUOTE,
+    CODE_SPACE,
+    CODE_STRUCTURAL,
+    Dialect,
+    build_nibble_luts,
+)
 from .device_tape import DeviceTape
-from .errors import InvalidCsvFormat, IoError
+from .errors import (
+    InvalidCsvFormat,
+    InvalidState,
+    IoError,
+    MissingValue,
+    StructureError,
+)
 from .index import build_index, build_index_device
 from .offsetfree import PackedDeviceTape
 from .streaming import (
@@ -28,7 +43,7 @@ from .streaming import (
     build_index_streaming,
     create_streaming,
 )
-from .tape import Header, Tape
+from .tape import Boundary, Chunk, Header, NewLine, Tape, boundaries
 
 __all__ = [
     "create",
@@ -45,7 +60,21 @@ __all__ = [
     "save_tape",
     "load_tape",
     "Dialect",
+    "build_nibble_luts",
+    "CODE_NEWLINE",
+    "CODE_DELIM",
+    "CODE_SPACE",
+    "CODE_ESCAPE",
+    "CODE_QUOTE",
+    "CODE_STRUCTURAL",
     "Header",
-    "InvalidCsvFormat",
+    "NewLine",
+    "Boundary",
+    "Chunk",
+    "boundaries",
+    "StructureError",
     "IoError",
+    "MissingValue",
+    "InvalidState",
+    "InvalidCsvFormat",
 ]

@@ -41,7 +41,10 @@ LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
             "probe_stream_write": 0, "probe_stream_read": 0, "probe_alu": 0,
             "probe_ablate": 0, "probe_ablate2": 0, "probe_kbench": 0,
             "probe_vnext": 0, "probe_ws_gather": 0, "probe_ws_lanesum": 0,
-            "probe_ws_packmm": 0}
+            "probe_ws_packmm": 0, "probe_mosaic_mm32": 0,
+            "probe_mosaic_gather": 0, "probe_mosaic_cmp8": 0,
+            "probe_mosaic_select8": 0, "probe_mosaic_shift_add": 0,
+            "probe_mosaic_usum": 0, "probe_concat_mm": 0}
 # layout codes of csrc/stage1_pack.cu
 _FOLD, _V2, _V1 = 0, 1, 2
 
@@ -183,6 +186,16 @@ def _library():
         lib.csv_probe_ws_lanesum.restype = i
         lib.csv_probe_ws_packmm.argtypes = [vp, ll, vp, vp, i, vp]
         lib.csv_probe_ws_packmm.restype = i
+        for name in ("mm32", "cmp8", "select8", "shift_add"):
+            fn = getattr(lib, f"csv_probe_mosaic_{name}")
+            fn.argtypes = [vp, ll, vp, vp]
+            fn.restype = i
+        lib.csv_probe_mosaic_gather.argtypes = [vp, vp, ll, vp, vp]
+        lib.csv_probe_mosaic_gather.restype = i
+        lib.csv_probe_mosaic_usum.argtypes = [vp, ll, vp, i, vp]
+        lib.csv_probe_mosaic_usum.restype = i
+        lib.csv_probe_concat_mm.argtypes = [vp, ll, vp, vp, i, vp]
+        lib.csv_probe_concat_mm.restype = i
         lib.csv_cuda_error_string.argtypes = [i]
         lib.csv_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -699,4 +712,106 @@ def probe_ws_packmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "probe_ws_packmm")
     LAUNCHES["probe_ws_packmm"] += 1
+    return out
+
+
+def check_rows(t: torch.Tensor, dtype: torch.dtype, what: str) -> int:
+    """Raise unless t is (rows, 128) of dtype with rows > 0, on any device
+    (the Mosaic probes' arrays); returns rows."""
+    if t.dtype != dtype or t.dim() != 2 or t.shape[1] != 128:
+        raise ValueError(f"{what}: expected (rows, 128) {dtype}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.shape[0] == 0:
+        raise ValueError(f"{what}: expected at least one row")
+    return t.shape[0]
+
+
+def _mosaic(name: str, counter: str, inputs: tuple, out_shape,
+            out_dtype: torch.dtype, with_sms: bool = False) -> torch.Tensor:
+    """One launch of csrc/probe_mosaic.cu's csv_probe_mosaic_<name> on
+    inputs ((tensor, dtype), ...) of one row count -> a new tensor of
+    out_shape(rows); with_sms passes the card's SM count."""
+    rows = None
+    for t, dtype in inputs:
+        _check_words(t, counter, dtype)
+        r = check_rows(t, dtype, counter)
+        if rows is not None and r != rows:
+            raise ValueError(f"{counter}: inputs of {rows} and {r} rows")
+        rows = r
+    dev = inputs[0][0].device
+    lib = _library()
+    with torch.cuda.device(dev):
+        out = torch.empty(out_shape(rows), dtype=out_dtype, device=dev)
+        extra = ((torch.cuda.get_device_properties(dev).multi_processor_count,)
+                 if with_sms else ())
+        err = getattr(lib, f"csv_probe_mosaic_{name}")(
+            *(t.data_ptr() for t, _ in inputs), rows, out.data_ptr(), *extra,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, counter)
+    LAUNCHES[counter] += 1
+    return out
+
+
+def probe_mosaic_mm32(v: torch.Tensor) -> torch.Tensor:
+    """csrc/probe_mosaic.cu's mm32_pack on CUDA (rows, 128) int32 ->
+    (rows, 16) int32, word g = lo | (hi << 16), lo and hi the wrapping
+    sums of v[:, 8g + l] << 4l and v[:, 8g + 4 + l] << 4l over l < 4."""
+    return _mosaic("mm32", "probe_mosaic_mm32", ((v, torch.int32),),
+                   lambda r: (r, 16), torch.int32)
+
+
+def probe_mosaic_gather(lut: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """csrc/probe_mosaic.cu's lane_gather on CUDA (rows, 128) int8 lut and
+    int32 idx -> (rows, 128) int8, out[r, j] = lut[r, idx[r, j] & 127]."""
+    return _mosaic("gather", "probe_mosaic_gather",
+                   ((lut, torch.int8), (idx, torch.int32)),
+                   lambda r: (r, 128), torch.int8)
+
+
+def probe_mosaic_cmp8(a: torch.Tensor) -> torch.Tensor:
+    """csrc/probe_mosaic.cu's cmp8 on CUDA (rows, 128) uint8 -> (rows, 128)
+    int32, a == 0x2C."""
+    return _mosaic("cmp8", "probe_mosaic_cmp8", ((a, torch.uint8),),
+                   lambda r: (r, 128), torch.int32)
+
+
+def probe_mosaic_select8(a: torch.Tensor) -> torch.Tensor:
+    """csrc/probe_mosaic.cu's select8 on CUDA (rows, 128) uint8 -> (rows,
+    128) uint8, where(a > 127, a, 7)."""
+    return _mosaic("select8", "probe_mosaic_select8", ((a, torch.uint8),),
+                   lambda r: (r, 128), torch.uint8)
+
+
+def probe_mosaic_shift_add(x: torch.Tensor) -> torch.Tensor:
+    """csrc/probe_mosaic.cu's shift_add on CUDA (rows, 128) int32 -> (rows,
+    128) int32, x[r] + x[r - 1] with row -1 = 0, wrapping."""
+    return _mosaic("shift_add", "probe_mosaic_shift_add", ((x, torch.int32),),
+                   lambda r: (r, 128), torch.int32)
+
+
+def probe_mosaic_usum(a: torch.Tensor) -> torch.Tensor:
+    """csrc/probe_mosaic.cu's usum on CUDA (rows, 128) int32 of uint32 bit
+    patterns -> (1, 1) int32, the bits of their uint32 sum mod 2^32."""
+    return _mosaic("usum", "probe_mosaic_usum", ((a, torch.int32),),
+                   lambda r: (1, 1), torch.int32, with_sms=True)
+
+
+def probe_concat_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """csrc/probe_concatmm.cu on CUDA (M, 1024) int32 and (1024, 128) int8
+    -> (M, 128) int32: int8(x + (col >> 7)) @ w, summed over all 1024
+    columns in int32, on the int8 tensor cores (mma.sync)."""
+    _check_words(x, "probe_concat_mm")
+    m = check_wide(x, "probe_concat_mm")
+    _check_words(w, "probe_concat_mm weights", torch.int8)
+    check_pack_weights(w, x, "probe_concat_mm")
+    lib = _library()
+    dev = x.device
+    with torch.cuda.device(dev):
+        out = torch.empty((m, 128), dtype=torch.int32, device=dev)
+        err = lib.csv_probe_concat_mm(
+            x.data_ptr(), m, w.data_ptr(), out.data_ptr(),
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_concat_mm")
+    LAUNCHES["probe_concat_mm"] += 1
     return out

@@ -1,0 +1,81 @@
+"""The port's public names against the JAX package's: every name the JAX
+package exports is exported by the port, except the 26 that come with
+modules the port has not ported yet (decode, corpus_api, frame, query,
+join, sql). The 14 names the port defines in its own copies of the host
+modules are its own objects, and its constants have the JAX package's
+values."""
+
+import numpy as np
+import pytest
+
+import csv_simd_tpu as jx
+import csv_simd_tpu_torch as pt
+
+UNPORTED = {
+    # decode
+    "DecodedView", "decode_field", "decode_str",
+    # corpus_api
+    "CsvCorpus", "CorpusTape",
+    # frame
+    "Col", "Frame", "infer_schema", "read_typed", "write_csv",
+    # query
+    "Stats", "column_quantiles", "column_stats", "describe", "distinct",
+    "group_aggregate", "groupby_typed", "order_records", "select_records",
+    "value_counts",
+    # join
+    "join_records", "join_typed",
+    # sql
+    "sql", "explain_sql", "SqlResult", "SqlError",
+}
+OWN_OBJECTS = ("StructureError", "MissingValue", "InvalidState", "NewLine",
+               "Boundary", "Chunk", "boundaries", "build_nibble_luts")
+CONSTANTS = ("CODE_NEWLINE", "CODE_DELIM", "CODE_SPACE", "CODE_ESCAPE",
+             "CODE_QUOTE", "CODE_STRUCTURAL")
+
+
+def test_missing_names_are_exactly_the_unported_modules():
+    assert len(UNPORTED) == 26
+    assert set(jx.__all__) - set(pt.__all__) == UNPORTED
+
+
+def test_every_listed_name_is_defined():
+    for name in pt.__all__:
+        assert hasattr(pt, name), name
+    assert len(pt.__all__) == len(set(pt.__all__))
+
+
+@pytest.mark.parametrize("name", OWN_OBJECTS)
+def test_exported_name_is_the_ports_own(name):
+    obj = getattr(pt, name)
+    assert obj.__module__.startswith("csv_simd_tpu_torch."), obj.__module__
+    assert obj is not getattr(jx, name)
+
+
+@pytest.mark.parametrize("name", CONSTANTS)
+def test_exported_constant_has_the_jax_value(name):
+    assert getattr(pt, name) == getattr(jx, name)
+
+
+def test_exported_names_behave_as_the_jax_ones():
+    from csv_simd_tpu_torch import (  # noqa: F401 - the import is the test
+        CODE_QUOTE,
+        Chunk,
+        StructureError,
+        build_nibble_luts,
+    )
+
+    assert issubclass(pt.InvalidCsvFormat, pt.StructureError)
+    assert issubclass(pt.MissingValue, pt.StructureError)
+    assert issubclass(pt.InvalidState, pt.StructureError)
+    for d in ({}, dict(delimiter=0x3B, quote=0x27)):
+        for got, want in zip(pt.build_nibble_luts(pt.Dialect(**d)),
+                             jx.build_nibble_luts(jx.Dialect(**d))):
+            np.testing.assert_array_equal(got, want)
+    for args in ((100, 1), (1000, 7), (10, 20), (0, 3)):
+        got = pt.boundaries(*args)
+        want = jx.boundaries(*args)
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert [(b.start, b.len) for b in got] == \
+                [(b.start, b.len) for b in want]
+    assert [m.name for m in pt.NewLine] == [m.name for m in jx.NewLine]

@@ -567,3 +567,117 @@ def test_widestore_tools_gate_check_and_run_on_card(cuda_device):
     for got in (ws2.run(w, reps=2, plain_reps=1),
                 ws3.run(w.view(-1, 1024), reps=2, plain_reps=1)):
         assert all(v["ms"] > 0 and v["plain_ms"] > 0 for v in got.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 56, 512, 520, 8000])
+def test_mosaic_kernels_match_plain(cuda_device, rows):
+    """Each T9 kernel against its plain version on full-range inputs (the
+    product also on |v| <= 256, the gather also on idx outside [0, 128));
+    each call launches its kernel once."""
+    from csv_simd_tpu_torch.tools import mosaic_probes as mp
+
+    cases = mp._cases(rows, cuda_device, rows)
+    before = _kernels.launch_counts()
+    for kernel, runs in cases.items():
+        for args, _what in runs:
+            _same((mp.FUNCTIONS[kernel](*args),), (mp.PLAIN[kernel](*args),))
+    after = _kernels.launch_counts()
+    for kernel, runs in cases.items():
+        counter = mp.LAUNCH_COUNTER[kernel]
+        assert after[counter] == before[counter] + len(runs)
+
+
+@pytest.mark.gpu
+def test_mosaic_tpu_probes_fixed_on_card(cuda_device):
+    """The eight probe lines: the seven bodies on their kernels, bit-exact
+    against the plain versions and the NumPy statements, and B1 on the
+    mm1 probe's bytes against golden."""
+    from csv_simd_tpu_torch.tools import mosaic_probes as mp
+
+    before = _kernels.launch_counts()
+    assert set(mp.report(cuda_device).values()) == {"fixed"}
+    after = _kernels.launch_counts()
+    for kernel, n in (("probe_mosaic_mm32", 2), ("probe_mosaic_gather", 1),
+                      ("probe_mosaic_cmp8", 1), ("probe_mosaic_select8", 1),
+                      ("probe_mosaic_shift_add", 1),
+                      ("probe_mosaic_usum", 1), ("stage1_v4", 1)):
+        assert after[kernel] == before[kernel] + n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 7, 64, 65, 1000, 4097])
+def test_concat_mm_kernel_matches_plain(cuda_device, m):
+    """The tensor-core product against its plain version with the probe's
+    W, full-range random int8 W and all -128, on full-range int32 x."""
+    from csv_simd_tpu_torch.tools import widestore_probe4 as ws4
+    from csv_simd_tpu_torch.tools._common import random_words
+
+    x = random_words(8 * m, cuda_device, 7 * m).view(-1, 1024)
+    weights = ws4.weight_sets(cuda_device)
+    before = _kernels.launch_counts()["probe_concat_mm"]
+    for w in weights.values():
+        _same((ws4.concat_mm(x, w),), (ws4._concat_mm_plain(x, w),))
+    assert _kernels.launch_counts()["probe_concat_mm"] == \
+        before + len(weights)
+
+
+@pytest.mark.gpu
+def test_concat_mm_tpu_probe_bit_exact_on_card(cuda_device):
+    from csv_simd_tpu_torch.tools import widestore_probe4 as ws4
+
+    before = _kernels.launch_counts()["probe_concat_mm"]
+    assert ws4.probe_concat_mm(cuda_device)
+    assert _kernels.launch_counts()["probe_concat_mm"] == before + 1
+
+
+@pytest.mark.gpu
+def test_mosaic_and_concat_kernels_reject_bad_input(cuda_device):
+    x = torch.zeros((64, 1024), dtype=torch.int32, device=cuda_device)
+    w = torch.zeros((1024, 128), dtype=torch.int8, device=cuda_device)
+    v = x.view(-1, 128)
+    a = torch.zeros((64, 128), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        _kernels.probe_mosaic_mm32(v[:, :64])
+    with pytest.raises(ValueError):
+        _kernels.probe_mosaic_mm32(v.cpu())
+    with pytest.raises(ValueError):
+        _kernels.probe_mosaic_cmp8(v)
+    with pytest.raises(ValueError):
+        _kernels.probe_mosaic_select8(a.to(torch.int8))
+    with pytest.raises(ValueError):
+        _kernels.probe_mosaic_gather(a.to(torch.int8), v[:32])
+    with pytest.raises(ValueError):
+        _kernels.probe_mosaic_shift_add(v[:0])
+    with pytest.raises(ValueError):
+        _kernels.probe_mosaic_usum(v.to(torch.int64))
+    with pytest.raises(ValueError):
+        _kernels.probe_concat_mm(x, w.to(torch.uint8))
+    with pytest.raises(ValueError):
+        _kernels.probe_concat_mm(x[:, :512], w)
+    with pytest.raises(ValueError):
+        _kernels.probe_concat_mm(x, w.t())
+
+
+@pytest.mark.gpu
+def test_mosaic_and_widestore4_tools_gate_check_and_run_on_card(cuda_device):
+    """Each tool's gate, its check of the timed input and a short run, as
+    chip_smoke.py and `python -m` drive them."""
+    from csv_simd_tpu_torch.tools import mosaic_probes as mp
+    from csv_simd_tpu_torch.tools import widestore_probe4 as ws4
+    from csv_simd_tpu_torch.tools._common import random_words
+
+    gate = mp.gate(cuda_device)
+    assert set(gate) == set(mp.KERNELS)
+    assert all(r["max_abs_err"] == 0 for r in gate.values())
+    assert ws4.gate(cuda_device) == {
+        "concat_mm": {"checks": 22, "max_abs_err": 0}}
+    small = {k: tuple(t[:4096] for t in v)
+             for k, v in mp.timed_inputs(cuda_device).items()}
+    assert all(r["checks"] == 2 for r in mp.check(small).values())
+    x = random_words(8192, cuda_device, 1).view(-1, 1024)
+    assert ws4.check(x) == {"concat_mm": {"checks": 2, "max_abs_err": 0}}
+    for got in (mp.run(small, reps=2, plain_reps=1),
+                ws4.run(x, reps=2, plain_reps=1)):
+        assert all(v["ms"] > 0 and v["plain_ms"] > 0 and v["library_ms"] > 0
+                   for v in got.values())

@@ -12,9 +12,6 @@ chip_smoke.py.
 The inputs are 128 KB or less, except where a (rows, 128) int32 input
 at tile 512 needs one whole tile (256 KB)."""
 
-import importlib.util
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,8 +27,8 @@ from csv_simd_tpu_torch.ops.stage1_v3 import unpack_packed_host
 from csv_simd_tpu_torch.ops.stage1_v4 import stage1_fused_v4
 from csv_simd_tpu_torch.tools import ablate2, kbench, vnext
 from corpus import synthetic_wide_table
+from jax_tools import interpret_tool
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TILES = (64, 512)
 
 
@@ -44,44 +41,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
-
-
-def _load_tool(name: str):
-    """A JAX tool module loaded from tools/ under a private name (the
-    tool's import only defines functions)."""
-    spec = importlib.util.spec_from_file_location(
-        f"_jax_lab_{name}", os.path.join(REPO, "tools", f"{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-class _InterpretPl:
-    """Stands in for a tool module's `pl`: pallas_call runs in interpret
-    mode and every call records (callable, args, outputs)."""
-
-    def __init__(self, real):
-        self._real = real
-        self.calls = []
-
-    def __getattr__(self, name):
-        return getattr(self._real, name)
-
-    def pallas_call(self, kernel, **kw):
-        f = self._real.pallas_call(kernel, interpret=True, **kw)
-
-        def call(*args):
-            out = f(*args)
-            self.calls.append((call, args, out))
-            return out
-
-        return call
-
-
-def _tool(monkeypatch, name: str):
-    tool = _load_tool(name)
-    monkeypatch.setattr(tool, "pl", _InterpretPl(tool.pl))
-    return tool
 
 
 _ALPHABET = np.frombuffer(b'ab"",\n\rx,z":; \t\xa2', np.uint8)
@@ -110,7 +69,7 @@ def _rows_for(tile: int, row_bytes: int) -> int:
 @pytest.mark.parametrize("tile", TILES)
 @pytest.mark.parametrize("mode", ablate2.MICRO)
 def test_ablate2_cut_matches_jax_tool_kernel(monkeypatch, mode, tile):
-    tool = _tool(monkeypatch, "ablate2")
+    tool = interpret_tool(monkeypatch, "ablate2")
     rows = _rows_for(tile, 512)
     a = _csv_words(rows, tile + len(mode))
     with jax.disable_jit():
@@ -205,7 +164,7 @@ def test_ablate2_package_modes_and_sol_on_cpu():
 def test_kbench_variant_matches_jax_tool_kernel(monkeypatch, name, tile):
     """Words and count (the last tile's, plus the carry-in for nopar and
     lanescan; current's is B6's total)."""
-    tool = _tool(monkeypatch, "kbench")
+    tool = interpret_tool(monkeypatch, "kbench")
     rows = _rows_for(tile, 128)
     b = _csv_bytes(rows, tile + len(name))
     for carry in (0, 1):
@@ -261,7 +220,7 @@ def test_kbench_checks_and_bad_input():
 @pytest.mark.parametrize("variant", list(vnext.VARIANTS))
 def test_vnext_variant_matches_jax_tool_kernel(monkeypatch, variant, tile):
     """Words and parity out of each candidate."""
-    tool = _tool(monkeypatch, "vnext")
+    tool = interpret_tool(monkeypatch, "vnext")
     i8acc, directpack = vnext.VARIANTS[variant]
     rows = _rows_for(tile, 512)
     a = _csv_words(rows, 7 * tile + len(variant))

@@ -9,7 +9,6 @@ tools/dma_probe.py and tools/dma_probe2.py are not imported here: the
 first runs its benchmark at import and the second configures JAX's
 compilation cache at import. Their kernels are stated in NumPy below."""
 
-import importlib.util
 import os
 import subprocess
 import sys
@@ -25,6 +24,7 @@ from csv_simd_tpu_torch.ops.stage1_v3 import stage1_swar_xla
 from csv_simd_tpu_torch.tools import _common, ablate, dma_probe, vpu_roofline
 from csv_simd_tpu_torch.tools import widestore_probe
 from corpus import synthetic_wide_table
+from jax_tools import InterpretPl, load_tool
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -166,44 +166,12 @@ def test_alu_plain_matches_numpy(n_ops):
                                           _np_alu(a, n_ops, mix, s))
 
 
-def _load_tool(name: str):
-    """A JAX tool module loaded from tools/ under a private name (no
-    file is edited; the tool's import only defines functions)."""
-    spec = importlib.util.spec_from_file_location(
-        f"_jax_tool_{name}", os.path.join(REPO, "tools", f"{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-class _InterpretPl:
-    """Stands in for a tool module's `pl`: pallas_call runs in interpret
-    mode and every call records (callable, args, outputs)."""
-
-    def __init__(self, real):
-        self._real = real
-        self.calls = []
-
-    def __getattr__(self, name):
-        return getattr(self._real, name)
-
-    def pallas_call(self, kernel, **kw):
-        f = self._real.pallas_call(kernel, interpret=True, **kw)
-
-        def call(*args):
-            out = f(*args)
-            self.calls.append((call, args, out))
-            return out
-
-        return call
-
-
 @pytest.mark.parametrize("n_ops", [16, 48])
 def test_alu_plain_matches_jax_tool_kernel(monkeypatch, n_ops):
     """One (512, 128) tile through the TPU tool's own kernel in interpret
     mode (its fori-loop chain run eagerly), two values of s."""
-    tool = _load_tool("vpu_roofline")
-    pl = _InterpretPl(tool.pl)
+    tool = load_tool("vpu_roofline")
+    pl = InterpretPl(tool.pl)
     monkeypatch.setattr(tool, "pl", pl)
     a = _rand_words(512, 60 + n_ops)
     for mix in tool.MIXES:
@@ -299,8 +267,8 @@ def test_ablate_plain_matches_jax_tool_kernel(monkeypatch, mode):
     """One 64-row tile through the TPU tool's own kernel in interpret
     mode (its fori-loop chain run eagerly), carries 0 and 1, on CSV-ish
     bytes so that every stage has work."""
-    tool = _load_tool("ablate")
-    pl = _InterpretPl(tool.pl)
+    tool = load_tool("ablate")
+    pl = InterpretPl(tool.pl)
     monkeypatch.setattr(tool, "pl", pl)
     a = _csv_words(64, 77)
     with jax.disable_jit():

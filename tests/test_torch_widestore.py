@@ -7,17 +7,10 @@ input and on full-range random int32, the products also with both
 probes' weights and random int8 weights, where the OR of the eight block
 products is not their sum. Tolerance 0: these are int32 words. The CUDA
 kernels are held against the plain versions on the card by
-tests/test_torch_gpu.py and chip_smoke.py.
+tests/test_torch_gpu.py and chip_smoke.py. Both JAX tools set JAX's
+persistent compilation cache when imported; tests/jax_tools.py stubs
+that while it loads them."""
 
-Both JAX tools set JAX's persistent compilation cache when imported; the
-loader stubs `jax.config.update` while it runs them, so that nothing of
-theirs outlives the load."""
-
-import importlib.util
-import os
-import sys
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,8 +18,8 @@ import torch
 
 from csv_simd_tpu_torch.tools import widestore_probe2 as ws2
 from csv_simd_tpu_torch.tools import widestore_probe3 as ws3
+from jax_tools import interpret_tool
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_PROBES = dict(ws2.PROBES + ws3.PROBES)
 
 
@@ -39,46 +32,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
-
-
-class _InterpretPl:
-    """Stands in for a tool module's `pl`: pallas_call runs in interpret
-    mode and every call records (callable, args, outputs)."""
-
-    def __init__(self, real):
-        self._real = real
-        self.calls = []
-
-    def __getattr__(self, name):
-        return getattr(self._real, name)
-
-    def pallas_call(self, kernel, **kw):
-        f = self._real.pallas_call(kernel, interpret=True, **kw)
-
-        def call(*args):
-            out = f(*args)
-            self.calls.append((call, args, out))
-            return out
-
-        return call
-
-
-def _tool(monkeypatch, name: str):
-    """The JAX tool loaded from tools/ under a private name, with
-    `jax.config.update` and sys.path as they were before the load, and
-    its `pl` replaced by the interpret-mode shim."""
-    spec = importlib.util.spec_from_file_location(
-        f"_jax_ws_{name}", os.path.join(REPO, "tools", f"{name}.py"))
-    tool = importlib.util.module_from_spec(spec)
-    path = list(sys.path)
-    cache_dir = jax.config.jax_compilation_cache_dir
-    with monkeypatch.context() as m:
-        m.setattr(jax.config, "update", lambda *a, **k: None)
-        spec.loader.exec_module(tool)
-    sys.path[:] = path
-    assert jax.config.jax_compilation_cache_dir == cache_dir
-    monkeypatch.setattr(tool, "pl", _InterpretPl(tool.pl))
-    return tool
 
 
 def _rand_words(shape, seed: int) -> np.ndarray:
@@ -110,7 +63,7 @@ def _np_product(xw: np.ndarray, w: np.ndarray) -> np.ndarray:
 
 @pytest.mark.parametrize("inp", ["probe", "random"])
 def test_s8_st16_matches_jax_tool_kernel(monkeypatch, inp):
-    tool = _tool(monkeypatch, "widestore_probe2")
+    tool = interpret_tool(monkeypatch, "widestore_probe2")
     assert tool.probe_s8_st16()
     call, args, _ = tool.pl.calls[0]
     x = np.asarray(args[0]) if inp == "probe" else _rand_words((512, 128), 1)
@@ -126,7 +79,7 @@ def test_mmL_matches_jax_tool_kernel(monkeypatch, inp, weights):
     """The probe's weights are the port's `weights_mmL`; on its nibble
     input and on full-range int32 the port's product equals the TPU
     kernel's with each weight set."""
-    tool = _tool(monkeypatch, "widestore_probe2")
+    tool = interpret_tool(monkeypatch, "widestore_probe2")
     assert tool.probe_mmL()
     call, args, _ = tool.pl.calls[0]
     np.testing.assert_array_equal(np.asarray(args[1]),
@@ -144,7 +97,7 @@ def test_mmL_matches_jax_tool_kernel(monkeypatch, inp, weights):
 @pytest.mark.parametrize("inp", ["probe", "random"])
 def test_laneload_matches_jax_tool_kernel(monkeypatch, inp):
     """Full-range input makes the int32 adds wrap."""
-    tool = _tool(monkeypatch, "widestore_probe3")
+    tool = interpret_tool(monkeypatch, "widestore_probe3")
     assert tool.probe_laneload()
     call, args, _ = tool.pl.calls[0]
     x = np.asarray(args[0]) if inp == "probe" else _rand_words((64, 1024), 3)
@@ -156,7 +109,7 @@ def test_laneload_matches_jax_tool_kernel(monkeypatch, inp):
 @pytest.mark.parametrize("weights", ["mmL", "mmLb", "random"])
 @pytest.mark.parametrize("inp", ["probe", "random"])
 def test_mmLb_matches_jax_tool_kernel(monkeypatch, inp, weights):
-    tool = _tool(monkeypatch, "widestore_probe3")
+    tool = interpret_tool(monkeypatch, "widestore_probe3")
     assert tool.probe_mmLb()
     call, args, _ = tool.pl.calls[0]
     np.testing.assert_array_equal(np.asarray(args[1]),
