@@ -14,7 +14,9 @@ Phases, each of which fails the run on any error:
    for bit: the stage-1 build (B1) over the corpus and fuzz inputs, both
    carries, count_nonascii both ways and three dialects; the row prefix
    (B2) at many row counts in both layouts; B1 at 64 MiB against
-   golden.structural_mask and golden.quote_parity_out; the other stage-1
+   golden.structural_mask and golden.quote_parity_out, and (one quote
+   open from its first chunk to its last) launched three times in a row
+   and replayed three times from one captured CUDA graph; the other stage-1
    layouts (B3 fold at tiles 8, 64 and 512, B4 sequential, B5 v2, B6 v1)
    over the same inputs, carries and dialects, each unpacked with its
    own inverse and held against golden.structural_mask, B3 with a
@@ -40,7 +42,10 @@ Phases, each of which fails the run on any error:
    [0, 128)) and the TPU tool's eight probe lines, each `fixed`; the
    tensor-core concat product (widestore_probe4) at M = 1 to 4,097 with
    the probe's, random and all -128 int8 weights, and its
-   `probe[concat1024+mm]: BIT-EXACT`;
+   `probe[concat1024+mm]: BIT-EXACT`; both int8 products (one kernel
+   template: the OR of block products and the concat sum) at M = 1, 15,
+   16, 17, 1,000 and 4,097 with five weight sets, among them all -128 and
+   blocks that reach the same columns (their OR is not their sum);
 3. the offsets-free path at 1 GiB (the wide-table configuration):
    create_packed on a 1 GiB CSV made of the data rows of one 64 MiB
    synthetic_wide_table block repeated after its header, a warm-up batch
@@ -77,11 +82,14 @@ Phases, each of which fails the run on any error:
 7. a torch.profiler trace (utils.profiling.device_trace) of a warm
    create_packed and a warm create at 1 GiB: the five device ops that
    took the most time and the device-busy share of the traced window.
-   The trace must name B1's and B3's kernels. A second trace gives each
-   probe and lab kernel's device time a launch at 64 MiB (the wide-store
-   kernels among them), with B1's pass B (`mask_pack`) beside the v4full
-   cut's (`ablate2_pass<8>`); it must name the Mosaic probes' kernels and
-   `concat_mm`.
+   The trace must name B1's and B3's kernels, and every `chunk_parity`
+   launch in it must be B3's pass A: B1 reads its input once. A second
+   trace gives each probe and lab kernel's device time a launch at 64 MiB
+   (the wide-store kernels among them), with B1's one pass (`mask_pack`)
+   beside the v4full cut's (`ablate2_v4full`); it must name the Mosaic
+   probes' kernels, `ablate2_v4full` and both int8 products,
+   `concat_mm<true, false>` (the concat sum) and `concat_mm<false, true>`
+   (the OR of block products).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -386,6 +394,77 @@ def fuzz_arrays() -> list:
         out.append((f"fuzz seed={seed} rows={rows}",
                     rng.choice(alphabet, size=rows * 512)))
     return out
+
+
+def gate_stage1_repeats(gate: Gate, device) -> None:
+    """B1 at 64 MiB (1,024 chunks, more than the card holds at once), one
+    quote opened in chunk 0 and closed in the last chunk, the carry a
+    device 1: three launches in a row, then three replays of one captured
+    CUDA graph with the outputs cleared before each, every result equal
+    to the plain version. A chunk status word left from an earlier launch
+    would show here."""
+    from csv_simd_tpu_torch.config import DEFAULT_DIALECT as d
+    from csv_simd_tpu_torch.ops.stage1_v4 import (
+        _stage1_v4_plain,
+        stage1_fused_v4,
+    )
+
+    rng = np.random.default_rng(1024)
+    arr = rng.choice(np.frombuffer(b"ab,\n\r x9;\xc3\xa9", np.uint8),
+                     size=BLOCK_BYTES)
+    arr[100] = arr[arr.size - 100] = 0x22
+    w = torch.from_numpy(arr.view("<i4").reshape(-1, 128)).to(device)
+    one = torch.ones((), dtype=torch.int32, device=device)
+    want = _stage1_v4_plain(w.view(-1), 1, d, True)
+    for i in range(3):
+        got = stage1_fused_v4(w, one, d)
+        for g, x, part in zip(got, want, ("words", "parity", "nonascii")):
+            gate.same("stage1_v4", g, x, f"64 MiB launch {i} {part}")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = stage1_fused_v4(w, one, d)
+    for i in range(3):
+        for g in got:
+            g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, x, part in zip(got, want, ("words", "parity", "nonascii")):
+            gate.same("stage1_v4", g, x, f"64 MiB graph replay {i} {part}")
+    del graph, got
+
+
+def gate_products(gate: Gate, device) -> None:
+    """Both int8 products (T10b/T11b's OR of the eight block products,
+    T12's sum) against their plain versions at M = 1, 15, 16, 17, 1000
+    and 4097 (the mma's 16-row tiles short, whole and one row over) with
+    both probes' weights, full-range random, all -128, and blocks that
+    all reach the same columns (their OR is not their sum)."""
+    from csv_simd_tpu_torch.tools import (
+        widestore_probe2,
+        widestore_probe3,
+        widestore_probe4,
+    )
+    from csv_simd_tpu_torch.tools._common import random_words
+
+    weights = {**widestore_probe2.weight_sets(device),
+               "min": torch.full((1024, 128), -128, dtype=torch.int8,
+                                 device=device),
+               "overlap": widestore_probe2.overlap_weights(device)}
+    for m in (1, 15, 16, 17, 1000, 4097):
+        x = random_words(8 * m, device, 31 * m)
+        wide = x.view(-1, 1024)
+        for name, w in weights.items():
+            at = f"M={m} {name} weights"
+            want = widestore_probe2._packmm_plain(wide, w)
+            gate.same("widestore_probe2.mmL", widestore_probe2.mm_lanes(x, w),
+                      want, at)
+            gate.same("widestore_probe3.mmLb",
+                      widestore_probe3.mm_lanes_b(wide, w), want, at)
+            gate.same("widestore_probe4.concat_mm",
+                      widestore_probe4.concat_mm(wide, w),
+                      widestore_probe4._concat_mm_plain(wide, w), at)
+    torch.cuda.synchronize()
 
 
 def gate_prefix(gate: Gate, device) -> None:
@@ -969,6 +1048,7 @@ def main() -> int:
     gate_prefix(gate, device)
     block = synthetic_wide_table(BLOCK_BYTES)
     gate_stage1_block(gate, device, block, golden)
+    gate_stage1_repeats(gate, device)
     arrays = [(f"corpus {c.name}", np.frombuffer(c.data, dtype=np.uint8))
               for c in cases] + fuzz_arrays()
     gate_pack(gate, device, arrays, golden)
@@ -976,6 +1056,7 @@ def main() -> int:
     # the direct fold pack at 64 MiB against B3 and golden
     gate.record("vnext", vnext.check(blk["words"]))
     gate_probes(gate, device)
+    gate_products(gate, device)
     if not report_probes(widestore_probe2.PROBES + widestore_probe3.PROBES
                          + widestore_probe4.PROBES, device):
         raise AssertionError("a wide-store probe is not bit-exact")
@@ -1320,17 +1401,26 @@ def main() -> int:
         per, busy = _device_ops(os.path.join(trace_dir,
                                              profiling.TRACE_FILE))
     top_ops = sorted(per.items(), key=lambda kv: -kv[1][0])[:5]
+    traced = {k: sum(n for name, (_, n) in per.items() if k in name)
+              for k in ("mask_pack", "pack_fold", "chunk_parity")}
     for kernel, what in (("mask_pack", "B1"), ("pack_fold", "B3")):
-        if not any(kernel in n for n in per):
+        if not traced[kernel]:
             raise AssertionError(f"the trace names no {what} kernel "
                                  f"({kernel})")
+    # B1 reads the input once: every chunk_parity launch is B3's pass A
+    if traced["chunk_parity"] != traced["pack_fold"]:
+        raise AssertionError(f"B1's build launched chunk_parity: {traced}")
     # the probes' kernels in a second trace, at 64 MiB: device time a
     # launch by name, beside phase 6's graph and eager times
     probe_ops = probe_trace(random_words(BLOCK_BYTES // 512, device, 64))
+    # the two int8 products, one kernel template: T12's sum and the mmL
+    # and mmLb OR of block products
     for kernel in ("mm32_pack", "lane_gather", "cmp8", "select8", "shift_add",
-                   "usum", "concat_mm"):
+                   "usum", "concat_mm<true, false>", "concat_mm<false, true>",
+                   "ablate2_v4full"):
         if kernel not in probe_ops:
-            raise AssertionError(f"the probe trace names no {kernel}")
+            raise AssertionError(f"the probe trace names no {kernel}: "
+                                 f"{sorted(probe_ops)}")
 
     gb = padded_rows(size) * ROW_BYTES / 1e9
     print(f"times on {card}:")
@@ -1424,12 +1514,11 @@ def main() -> int:
     print(f"library calls on {card} (ms; the Mosaic probes' at 64 MiB, the "
           "rest at 1 GiB): " + ", ".join(
               f"{k} {v:.4f}" for k, v in library_ms.items()))
-    pass_b = {k: v for k, v in probe_ops.items()
-              if k.startswith(("mask_pack", "ablate2_pass<8>",
-                               "chunk_parity"))}
-    print(f"B1's pass B beside the v4full cut's, 64 MiB trace on {card} "
-          "(device ms a launch): " + "; ".join(
-              f"{k} {t:.4f} x{n}" for k, (t, n) in sorted(pass_b.items())))
+    one_pass = {k: v for k, v in probe_ops.items()
+                if k.startswith(("mask_pack", "ablate2_v4full", "concat_mm"))}
+    print(f"B1's one pass beside the v4full cut's, and the two int8 products, "
+          f"64 MiB trace on {card} (device ms a launch): " + "; ".join(
+              f"{k} {t:.4f} x{n}" for k, (t, n) in sorted(one_pass.items())))
 
     print("gate with the timed inputs: " + ", ".join(
         f"{k} {v}" for k, v in gate.checks.items())
@@ -1481,13 +1570,13 @@ def main() -> int:
         ("widestore_probe2.s8_st16", "cuda", "probe_widestore.cu",
          "tools/widestore_probe2.py:44", "probe_ws_gather", _sum(l_ws2),
          "widestore_probe2.s8_st16"),
-        ("widestore_probe2.mmL", "cuda", "probe_widestore.cu",
+        ("widestore_probe2.mmL", "cuda", "probe_concatmm.cu",
          "tools/widestore_probe2.py:87", "probe_ws_packmm", _sum(l_ws2),
          "widestore_probe2.mmL"),
         ("widestore_probe3.laneload", "cuda", "probe_widestore.cu",
          "tools/widestore_probe3.py:41", "probe_ws_lanesum", _sum(l_ws3),
          "widestore_probe3.laneload"),
-        ("widestore_probe3.mmLb", "cuda", "probe_widestore.cu",
+        ("widestore_probe3.mmLb", "cuda", "probe_concatmm.cu",
          "tools/widestore_probe3.py:75", "probe_ws_packmm", _sum(l_ws3),
          "widestore_probe3.mmLb"),
         *((f"mosaic_probes.{probe}", "cuda", "probe_mosaic.cu",

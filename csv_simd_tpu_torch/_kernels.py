@@ -695,9 +695,10 @@ def probe_ws_lanesum(x: torch.Tensor) -> torch.Tensor:
 
 
 def probe_ws_packmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """csrc/probe_widestore.cu's pack product on CUDA (M, 1024) int32 and
+    """csrc/probe_concatmm.cu's pack product on CUDA (M, 1024) int32 and
     (1024, 128) int8 -> (M, 128) int32: the OR over k < 8 of
-    int8(x[:, 128k:128k+128]) @ w[128k:128k+128], in int32."""
+    int8(x[:, 128k:128k+128]) @ w[128k:128k+128], in int32, on the int8
+    tensor cores (mma.sync)."""
     _check_words(x, "probe_ws_packmm")
     m = check_wide(x, "probe_ws_packmm")
     _check_words(w, "probe_ws_packmm weights", torch.int8)

@@ -27,17 +27,18 @@
 // chunk of the value they compute (sf | qf, us | uq, vs + vq, and mm1's whole
 // word sw), so every input word is classified, as on the TPU.
 //
-// What bounds it on an H100: HBM bandwidth for every cut (read N, write N/16),
-// plus for v4full the second read of B1's carry pass A.
+// What bounds it on an H100: HBM bandwidth for every cut (read N, write N/16).
 //
-// What the design does about it: it is B1's pass B (stage1_v4.cu
-// `mask_pack`), templated on the cut. 64 KiB chunks a block, 4 KiB steps,
-// warp w on row w of the step, one 16-byte load a thread, thread pairs join
-// their 16-bit masks into one 32-bit word with __shfl_xor_sync, stores 64
-// contiguous bytes a warp. v4full is B1's pass A, carry scan and pass B
-// (stage1_core.cuh `launch_carry` and `step_mask`), so its words are B1's.
-// The toggle changes only at tile boundaries, which are whole steps (tile
-// % 8 == 0), so each block divides once and counts rows after that.
+// What the design does about it: the cuts before v4full are the two-pass
+// B1's pass B, templated on the cut (`ablate2_pass`): 64 KiB chunks a
+// block, 4 KiB steps, warp w on row w of the step, one 16-byte load a
+// thread, thread pairs join their 16-bit masks into one 32-bit word with
+// __shfl_xor_sync, stores 64 contiguous bytes a warp. v4full is B1's one
+// pass (`ablate2_v4full` on stage1_core.cuh `one_pass`, the default
+// dialect's SWAR classify, the same chunk and stores as B1's `mask_pack`),
+// so its words are B1's and its time is B1's. The toggle changes only at
+// tile boundaries, which are whole steps (tile % 8 == 0), so each block
+// divides once and counts rows after that.
 #include "stage1_core.cuh"
 
 namespace {
@@ -72,34 +73,18 @@ __device__ __forceinline__ uint32_t classify_80(uint32_t x, const ByteClasses& c
   return m & kHi;
 }
 
-__device__ __forceinline__ uint32_t prefix_xor16(uint32_t q) {
-  q ^= q << 1;
-  q ^= q << 2;
-  q ^= q << 4;
-  q ^= q << 8;
-  return q;
-}
-
 template <int kCut>
 __global__ void __launch_bounds__(kThreads)
 ablate2_pass(const uint4* __restrict__ in, long long n_bytes, ByteClasses c,
-             const int* __restrict__ chunk_carry,
              const int* __restrict__ carry_ptr, int carry_in, int tile,
              uint32_t* __restrict__ out, uint32_t* __restrict__ side) {
-  __shared__ uint32_t s_wpar[2][kWarps];
   __shared__ uint32_t s_side;
   const int lane = threadIdx.x & 31;
   const long long base = (long long)blockIdx.x * kChunkBytes;
-  uint32_t carry = 0, t = 0;
-  int left = 0;  // rows of the current tile from this step on
-  if constexpr (kCut == kV4full) {
-    carry = (uint32_t)chunk_carry[blockIdx.x] & 1u;
-  } else {
-    const int row0 = blockIdx.x * kChunkRows;
-    const uint32_t cin = (uint32_t)(carry_ptr ? *carry_ptr : carry_in) & 1u;
-    t = (cin + (uint32_t)(row0 / tile)) & 1u;
-    left = tile - row0 % tile;
-  }
+  const int row0 = blockIdx.x * kChunkRows;
+  const uint32_t cin = (uint32_t)(carry_ptr ? *carry_ptr : carry_in) & 1u;
+  uint32_t t = (cin + (uint32_t)(row0 / tile)) & 1u;
+  int left = tile - row0 % tile;  // rows of the current tile from this step on
   if constexpr (has_side(kCut)) {
     if (threadIdx.x == 0) s_side = 0;
     __syncthreads();
@@ -107,12 +92,6 @@ ablate2_pass(const uint4* __restrict__ in, long long n_bytes, ByteClasses c,
   uint32_t xs = 0;  // this thread's XOR of the side value
   for (int step = 0; step < kSteps; ++step) {
     const long long off = base + (long long)step * kStepBytes + threadIdx.x * 16;
-    if constexpr (kCut == kV4full) {
-      const uint32_t m = step_mask(in, off, n_bytes, c, carry, s_wpar, step);
-      const uint32_t upper = __shfl_xor_sync(kFull, m, 1);
-      if (off < n_bytes && !(lane & 1)) out[off >> 5] = m | (upper << 16);
-      continue;
-    }
     // rows % 8 == 0: a step is live or not for the whole block
     if (off >= n_bytes) break;
     if (left == 0) {
@@ -178,13 +157,34 @@ ablate2_pass(const uint4* __restrict__ in, long long n_bytes, ByteClasses c,
   }
 }
 
+// v4full: B1's narrow words by B1's one pass (stage1_v4.cu `mask_pack`
+// without emits)
+__global__ void __launch_bounds__(kThreads, 2)
+ablate2_v4full(const uint4* __restrict__ in, long long n_bytes, ByteClasses c,
+               OnePass g, uint32_t* __restrict__ out) {
+  __shared__ OnePassShared sh;
+  const int lane = threadIdx.x & 31;
+  one_pass<kSteps, true>(in, n_bytes, c, g, sh, [&](
+      int chunk, const ChunkMasks<kSteps>& cm) {
+    const long long base = (long long)chunk * kChunkBytes;
+#pragma unroll
+    for (int step = 0; step < kSteps; ++step) {
+      const long long off =
+          base + (long long)step * kStepBytes + threadIdx.x * 16;
+      const uint32_t m = cm.mask(step);
+      const uint32_t upper = __shfl_xor_sync(kFull, m, 1);
+      if (off < n_bytes && !(lane & 1)) out[off >> 5] = m | (upper << 16);
+    }
+  });
+}
+
 template <int kCut>
 cudaError_t launch(unsigned grid, cudaStream_t st, const uint4* in,
                    long long n_bytes, const ByteClasses& c,
-                   const int* chunk_carry, const int* carry_ptr, int carry_in,
-                   int tile, uint32_t* out, uint32_t* side) {
+                   const int* carry_ptr, int carry_in, int tile, uint32_t* out,
+                   uint32_t* side) {
   ablate2_pass<kCut><<<grid, kThreads, 0, st>>>(
-      in, n_bytes, c, chunk_carry, carry_ptr, carry_in, tile, out, side);
+      in, n_bytes, c, carry_ptr, carry_in, tile, out, side);
   return cudaGetLastError();
 }
 
@@ -202,10 +202,10 @@ long long csv_probe_ablate2_chunks(long long rows) {
 // multiple of 8. cut: 0 cls22, 1 cls18, 2 prep, 3 mm1, 4 pack1 (and
 // pack1slice), 5 pack2, 6 px, 7 lane, 8 v4full. out: rows * 16 ints, as
 // (rows, 16). side: csv_probe_ablate2_chunks(rows) words, written by cuts 0-3.
-// chunk_scratch: 2 * csv_probe_ablate2_chunks(rows) ints; scalars: 2 ints
-// (v4full's parity out, -1). carry_ptr: a device int whose bit 0 is the
-// carry-in, or null to take carry_in. Returns cudaGetLastError() after the
-// launches.
+// chunk_scratch: 2 * csv_probe_ablate2_chunks(rows) ints (v4full's status
+// words and ticket); scalars: 2 ints (v4full's parity out, -1). carry_ptr:
+// a device int whose bit 0 is the carry-in, or null to take carry_in.
+// Returns cudaGetLastError() after the launches.
 int csv_probe_ablate2(int cut, const void* in, long long rows, int tile,
                       const void* carry_ptr, int carry_in, void* out,
                       void* side, void* chunk_scratch, void* scalars,
@@ -218,23 +218,28 @@ int csv_probe_ablate2(int cut, const void* in, long long rows, int tile,
   const ByteClasses c = make_classes(0x22, structural);
   const long long n_bytes = rows * 512;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* chunk_par = static_cast<int*>(chunk_scratch);
-  int* chunk_carry = chunk_par + n_chunks;
-  if (cut == kV4full) {
-    cudaError_t err = launch_carry(in, n_bytes, kSteps, n_chunks, c, 0,
-                                   chunk_par, chunk_carry, nullptr, carry_ptr,
-                                   carry_in, static_cast<int*>(scalars), st);
-    if (err != cudaSuccess) return (int)err;
-  }
   const unsigned grid = (unsigned)n_chunks;
   const uint4* in4 = static_cast<const uint4*>(in);
   const int* cp = static_cast<const int*>(carry_ptr);
   uint32_t* o = static_cast<uint32_t*>(out);
   uint32_t* sd = static_cast<uint32_t*>(side);
+  if (cut == kV4full) {
+    OnePass g{};
+    g.carry_ptr = cp;
+    g.carry_in = carry_in;
+    g.scalars = static_cast<int*>(scalars);
+    unsigned v4_grid = 0;
+    cudaError_t err = reset_one_pass(g, chunk_scratch, n_chunks, st);
+    if (err == cudaSuccess)
+      err = one_pass_grid(ablate2_v4full, n_chunks, v4_grid);
+    if (err != cudaSuccess) return (int)err;
+    ablate2_v4full<<<v4_grid, kThreads, 0, st>>>(in4, n_bytes, c, g, o);
+    return (int)cudaGetLastError();
+  }
 #define CSV_ABLATE2_CASE(M)                                                  \
   case M:                                                                    \
-    return (int)launch<M>(grid, st, in4, n_bytes, c, chunk_carry, cp,        \
-                          carry_in, tile, o, sd);
+    return (int)launch<M>(grid, st, in4, n_bytes, c, cp, carry_in, tile, o,  \
+                          sd);
   switch (cut) {
     CSV_ABLATE2_CASE(kCls22)
     CSV_ABLATE2_CASE(kCls18)
@@ -244,7 +249,6 @@ int csv_probe_ablate2(int cut, const void* in, long long rows, int tile,
     CSV_ABLATE2_CASE(kPack2)
     CSV_ABLATE2_CASE(kPx)
     CSV_ABLATE2_CASE(kLane)
-    CSV_ABLATE2_CASE(kV4full)
   }
 #undef CSV_ABLATE2_CASE
   return (int)cudaErrorInvalidValue;

@@ -1,11 +1,21 @@
-// The lane-axis concat product for Hopper (sm_90a), on the int8 tensor cores.
+// The int8 products of the wide-store probes for Hopper (sm_90a), on the
+// int8 tensor cores: one kernel template for two functions of x (M, 1024)
+// int32 and W (1024, 128) int8, with int32 accumulation; the int8 cast
+// wraps, as astype(jnp.int8) does.
 //
-// Replaces tools/widestore_probe4.py `probe_concat_mm` (pallas_call line 40):
-// out = concat over k < 8 of int8(x[:, 128k:128k+128] + k) @ W, one product
-// that sums over all of K = 1024 with int32 accumulation, for x (M, 1024)
-// int32 and W (1024, 128) int8; the int8 cast wraps, as astype(jnp.int8)
-// does. Each output is at most 1024 * 128 * 128 = 2^24 in magnitude, so the
-// int32 sums are exact.
+// Replaces three TPU probe kernels:
+//   tools/widestore_probe4.py `probe_concat_mm` (pallas_call line 40), T12:
+//     out = concat over k < 8 of int8(x[:, 128k:128k+128] + k) @ W, one
+//     product summed over all of K = 1024 (`concat_mm<true, false>`,
+//     kAddBlock); each output is at most 1024 * 128 * 128 = 2^24 in
+//     magnitude;
+//   tools/widestore_probe2.py `probe_mmL` (line 87), T10b, and
+//   tools/widestore_probe3.py `probe_mmLb` (line 75), T11b: out = OR over
+//     k < 8 of int8(x[:, 128k:128k+128]) @ W[128k:128k+128]
+//     (`concat_mm<false, true>`, kOrBlocks); each block's sums are at most
+//     128 * 128 * 128 = 2^21 in magnitude. mmL's (rows, 128) input is the
+//     same bytes as mmLb's (rows/8, 1024) view, so one launch serves both.
+// The int32 sums are exact either way.
 //
 // What bounds it on an H100: HBM bytes. It reads 4 bytes of x for 128 int8
 // multiply-adds, 0.0125 bytes an operation against the 0.0017 at which the
@@ -24,10 +34,16 @@
 // bank conflict. Every warp owns 16-row tiles of x (all 128 output columns:
 // 16 n-tiles, 64 int32 accumulators a lane) and walks K in stages of one
 // 128-column block: 16 loads of 16 bytes a lane, each four int32 of one row
-// narrowed to four int8 with __byte_perm, then k added to each byte with
-// __vadd4 (the wrap of int8(x + k)). The next stage's loads are issued before
-// the current stage's 64 mma.sync (register double buffering), across tile
-// ends too, so HBM reads stay in flight while the tensor cores work.
+// narrowed to four int8 with __byte_perm (with kAddBlock, k added to each
+// byte with __vadd4: the wrap of int8(x + k)). The next stage's loads are
+// issued before the current stage's 64 mma.sync (register double
+// buffering), across tile ends too, so HBM reads stay in flight while the
+// tensor cores work. A stage is one block of the OR, and all four of its
+// k-steps' A fragments are in registers before the products: with
+// kOrBlocks the loop runs over the n-tile pairs first, each pair's four
+// k-steps into a zeroed 2 x 4 partial that is then ORed into the
+// accumulators (8 more registers, not a second set of 64); with kAddBlock
+// the k-steps run first, straight into the accumulators.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -79,6 +95,7 @@ __device__ __forceinline__ void load_stage(uint4 (&raw)[4 * kStepsPerStage],
   }
 }
 
+template <bool kAddBlock, bool kOrBlocks>
 __global__ void __launch_bounds__(kThreads, 1)
 concat_mm(const uint4* __restrict__ x, long long m,
           const uint32_t* __restrict__ w, int2* __restrict__ out) {
@@ -126,14 +143,17 @@ concat_mm(const uint4* __restrict__ x, long long m,
   load_stage(raw, x, m, tile, 0, group, t);
   int stage = 0;
   while (true) {
-    // this stage's A fragments: int8(x + k), k = the stage's block index
+    // this stage's A fragments: int8(x), or int8(x + k) with k the
+    // stage's block index
     uint32_t a[kStepsPerStage][4];
     const uint32_t k_bytes = 0x01010101u * (uint32_t)stage;
 #pragma unroll
     for (int s = 0; s < kStepsPerStage; ++s)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        a[s][e] = __vadd4(low_bytes(raw[4 * s + e]), k_bytes);
+      for (int e = 0; e < 4; ++e) {
+        a[s][e] = low_bytes(raw[4 * s + e]);
+        if constexpr (kAddBlock) a[s][e] = __vadd4(a[s][e], k_bytes);
+      }
     // the next stage's loads, in flight during this stage's products
     long long next_tile = tile;
     int next_stage = stage + 1;
@@ -143,14 +163,33 @@ concat_mm(const uint4* __restrict__ x, long long m,
     }
     const bool more = next_tile < n_tiles;
     if (more) load_stage(raw, x, m, next_tile, next_stage, group, t);
-#pragma unroll
-    for (int s = 0; s < kStepsPerStage; ++s) {
-      const int kk = stage * kStepsPerStage + s;
+    if constexpr (kOrBlocks) {
 #pragma unroll
       for (int jp = 0; jp < kNTiles / 2; ++jp) {
-        const uint4 b = s_w4[(kk * (kNTiles / 2) + jp) * 32 + lane];
-        mma_s8(acc[2 * jp], a[s], b.x, b.y);
-        mma_s8(acc[2 * jp + 1], a[s], b.z, b.w);
+        int p0[4] = {0, 0, 0, 0}, p1[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int s = 0; s < kStepsPerStage; ++s) {
+          const int kk = stage * kStepsPerStage + s;
+          const uint4 b = s_w4[(kk * (kNTiles / 2) + jp) * 32 + lane];
+          mma_s8(p0, a[s], b.x, b.y);
+          mma_s8(p1, a[s], b.z, b.w);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[2 * jp][e] |= p0[e];
+          acc[2 * jp + 1][e] |= p1[e];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < kStepsPerStage; ++s) {
+        const int kk = stage * kStepsPerStage + s;
+#pragma unroll
+        for (int jp = 0; jp < kNTiles / 2; ++jp) {
+          const uint4 b = s_w4[(kk * (kNTiles / 2) + jp) * 32 + lane];
+          mma_s8(acc[2 * jp], a[s], b.x, b.y);
+          mma_s8(acc[2 * jp + 1], a[s], b.z, b.w);
+        }
       }
     }
     if (stage == kStages - 1) {
@@ -172,27 +211,44 @@ concat_mm(const uint4* __restrict__ x, long long m,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// x: (m, 1024) int32, m > 0; w: (1024, 128) int8, row-major; both 16-byte
-// aligned. out: (m, 128) int32. n_sms: the card's SM count (one persistent
-// block each, fewer when M has fewer 16-row tiles than the blocks' warps).
-// Returns cudaGetLastError() after the launch.
-int csv_probe_concat_mm(const void* x, long long m, const void* w, void* out,
-                        int n_sms, void* stream) {
+// one persistent block an SM, fewer when M has fewer 16-row tiles than
+// the blocks' warps
+template <bool kAddBlock, bool kOrBlocks>
+int launch(const void* x, long long m, const void* w, void* out, int n_sms,
+           void* stream) {
   if (m <= 0 || n_sms <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      concat_mm, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      concat_mm<kAddBlock, kOrBlocks>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
   const long long n_tiles = (m + 15) / 16;
   const long long blocks = (n_tiles + kWarps - 1) / kWarps;
   const unsigned grid = (unsigned)(blocks < n_sms ? blocks : n_sms);
-  concat_mm<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), m, static_cast<const uint32_t*>(w),
-      static_cast<int2*>(out));
+  concat_mm<kAddBlock, kOrBlocks>
+      <<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint4*>(x), m, static_cast<const uint32_t*>(w),
+          static_cast<int2*>(out));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both: x (m, 1024) int32, m > 0; w (1024, 128) int8, row-major; both
+// 16-byte aligned. out: (m, 128) int32. n_sms: the card's SM count.
+// Return cudaGetLastError() after the launch.
+
+// T12: the sum over K of int8(x + k) @ W.
+int csv_probe_concat_mm(const void* x, long long m, const void* w, void* out,
+                        int n_sms, void* stream) {
+  return launch<true, false>(x, m, w, out, n_sms, stream);
+}
+
+// T10b/T11b: the OR over the eight blocks of int8(x block) @ W block.
+int csv_probe_ws_packmm(const void* x, long long m, const void* w, void* out,
+                        int n_sms, void* stream) {
+  return launch<false, true>(x, m, w, out, n_sms, stream);
 }
 
 }  // extern "C"

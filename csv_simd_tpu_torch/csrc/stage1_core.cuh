@@ -1,6 +1,6 @@
 // The classify-and-carry core shared by every stage-1 kernel (B1 in
-// stage1_v4.cu; B3, B5 and B6 in stage1_pack.cu) and by the stage-cut probe
-// (probe_ablate.cu).
+// stage1_v4.cu; B3, B5 and B6 in stage1_pack.cu) and by the stage-1 probes
+// (probe_ablate.cu, probe_ablate2.cu, probe_kbench.cu, probe_vnext.cu).
 //
 // All of them compute one mask over the input's flat byte stream: a byte is
 // kept iff it is a delimiter or newline outside quotes, where in-quote is the
@@ -8,9 +8,26 @@
 // in how the kept bits are packed into words.
 //
 // The TPU kernels carried the quote parity through SMEM because their grid
-// runs in order; blocks here run in parallel, so the carry takes two passes:
-//   pass A  `chunk_parity`: each block reduces the quote parity (and, for B1,
-//           the non-ASCII count) of its chunk of whole 4 KiB steps;
+// runs in order; blocks here run in parallel, so the carry crosses blocks in
+// one of two ways. A step is 256 threads x 16 bytes: loads are one uint4 a
+// thread, neighbours on neighbouring addresses.
+//
+// One pass (B1 and the v4full cut of probe_ablate2.cu): `one_pass` reads
+// each chunk of whole steps once, all of a thread's loads issued together,
+// and keeps each step's quote prefix and structural bits in registers. Each
+// warp's step parities make one word of shared memory, so one barrier gives
+// every thread its parity before each of its steps within the chunk. The
+// carry into the chunk comes by decoupled look-back (Merrill and Garland's
+// single-pass scan, on one bit): a block takes chunks from an atomic ticket
+// and publishes each chunk's parity as a status word (`OnePass`). Blocks
+// stay resident and work two chunks deep, so that a chunk's carry is taken
+// a round after its own parity, from a window of its predecessors' words
+// read while the next chunk is classified. The classify is the
+// shared-subexpression SWAR form for an ASCII dialect and __vcmpeq4
+// otherwise (`classify16`).
+//
+// Two passes (the others):
+//   pass A  `chunk_parity`: each block reduces the quote parity of its chunk;
 //   scan    `chunk_carry_scan`: one block turns the chunk parities into each
 //           chunk's incoming carry (an exclusive XOR scan seeded with the
 //           carry-in, read from device memory when the caller passes a
@@ -18,10 +35,7 @@
 //   pass B  each layout's kernel walks its chunk again in 4 KiB steps, and
 //           `step_mask` gives each thread the 16-bit mask of its 16 bytes
 //           (`step_carry`, its carry step, also serves the stage-cut probe
-//           in probe_ablate.cu).
-// A step is 256 threads x 16 bytes: loads are one uint4 a thread, neighbours
-// on neighbouring addresses. The classify compares bytes with __vcmpeq4,
-// which serves ASCII and non-ASCII dialects alike.
+//           in probe_ablate.cu); the classify is __vcmpeq4.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -219,6 +233,416 @@ inline cudaError_t launch_carry(const void* in, long long n_bytes, int steps,
       static_cast<const int*>(carry_ptr), carry_in, count_nonascii, nonascii,
       scalars);
   return cudaGetLastError();
+}
+
+// ---- One pass ----
+
+// bit j = XOR of bits 0..j of q, for j < 16 (bits above 15 are not kept)
+__device__ __forceinline__ uint32_t prefix_xor16(uint32_t q) {
+  q ^= q << 1;
+  q ^= q << 2;
+  q ^= q << 4;
+  q ^= q << 8;
+  return q;
+}
+
+// The shared-subexpression SWAR classify of one word for a dialect whose
+// bytes are all < 0x80: per byte, (low 7 bits ^ target) + 0x7F has bit 7
+// clear iff they are equal (no carry leaves a byte), and a byte with bit 7
+// set equals no target. 4-bit quote and structural masks, byte k -> bit k.
+__device__ __forceinline__ void swar4(uint32_t x, const ByteClasses& c,
+                                      uint32_t& q, uint32_t& s) {
+  constexpr uint32_t kLow7 = 0x7f7f7f7fu;
+  const uint32_t xl = x & kLow7, xh = x & 0x80808080u;
+  uint32_t ts = (xl ^ c.structural[0]) + kLow7;
+#pragma unroll
+  for (int i = 1; i < kMaxStructural; ++i) ts &= (xl ^ c.structural[i]) + kLow7;
+  q = nibble(~(((xl ^ c.quote) + kLow7) | xh));
+  s = nibble(~(ts | xh));
+}
+
+// 16-bit quote and structural masks of 16 bytes: SWAR when kAscii (the
+// dialect's bytes all < 0x80), __vcmpeq4 otherwise
+template <bool kAscii>
+__device__ __forceinline__ void classify16(const uint4 v, const ByteClasses& c,
+                                           uint32_t& q, uint32_t& s) {
+  if constexpr (kAscii) {
+    const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+    q = s = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      uint32_t qk, sk;
+      swar4(x[k], c, qk, sk);
+      q |= qk << (4 * k);
+      s |= sk << (4 * k);
+    }
+  } else {
+    q = quote16(v, c);
+    s = structural16(v, c);
+  }
+}
+
+inline bool ascii_classes(int quote, const int* structural) {
+  bool ascii = (quote & 0xff) < 0x80;
+  for (int i = 0; i < kMaxStructural; ++i)
+    ascii = ascii && (structural[i] & 0xff) < 0x80;
+  return ascii;
+}
+
+// A chunk's status word: 0 until its block publishes; then kAggregate |
+// the chunk's own quote parity, and last kInclusive | the parity after the
+// chunk (the carry-in included).
+constexpr uint32_t kAggregate = 2u, kInclusive = 4u;
+
+// What a one-pass launch shares across its blocks. status (n_chunks words),
+// ticket and, when counting, nonascii are zero before the launch
+// (`reset_one_pass`); the last chunk's block writes scalars[0], the parity
+// out, and scalars[1], the non-ASCII count or -1.
+struct OnePass {
+  uint32_t* status;
+  int* ticket;
+  int n_chunks;
+  const int* carry_ptr;  // bit 0 is the carry-in; null: carry_in
+  int carry_in;
+  int count_nonascii;
+  unsigned long long* nonascii;
+  int* scalars;
+};
+
+// status and ticket in chunk_scratch (n_chunks + 1 ints), both zeroed, and
+// the non-ASCII counter zeroed when counting, on stream st
+inline cudaError_t reset_one_pass(OnePass& g, void* chunk_scratch,
+                                  long long n_chunks, cudaStream_t st) {
+  g.status = static_cast<uint32_t*>(chunk_scratch);
+  g.ticket = reinterpret_cast<int*>(g.status + n_chunks);
+  g.n_chunks = (int)n_chunks;
+  cudaError_t err = cudaMemsetAsync(chunk_scratch, 0,
+                                    (n_chunks + 1) * sizeof(int), st);
+  if (err == cudaSuccess && g.count_nonascii)
+    err = cudaMemsetAsync(g.nonascii, 0, sizeof(unsigned long long), st);
+  return err;
+}
+
+// The grid of a one-pass kernel: as many blocks as the card holds at once,
+// at most one a chunk (each block loops over chunks by ticket).
+template <class Kernel>
+inline cudaError_t one_pass_grid(Kernel kernel, long long n_chunks,
+                                 unsigned& grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return err;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  grid = (unsigned)(n_chunks < resident ? n_chunks : resident);
+  return cudaSuccess;
+}
+
+// status words a thread reads at once: a look-back window of 256 chunks
+// (windows of 512 and 1,024 took longer on an H100)
+constexpr int kWindowWords = 1;
+
+// A block's shared state, in two buffers that alternate by chunk, so that a
+// warp writing the next chunk's words cannot meet one still reading this
+// chunk's (a __syncthreads lies between).
+struct OnePassShared {
+  uint32_t step_par[2][kWarps];  // each warp's step parities, bit k = step k
+  unsigned high[2][kWarps];      // each warp's bytes >= 0x80
+  uint32_t window[2][kWindowWords * kWarps][3];  // none, inclusive, odd
+  int next[2];                   // the chunk after, from the ticket
+  uint32_t carry;                // the fallback look-back's carry
+};
+
+// One thread's part of a chunk of kNSteps steps, from `one_pass`.
+template <int kNSteps>
+struct ChunkMasks {
+  uint32_t ps[kNSteps];  // low half: in-thread inclusive quote prefix XOR;
+                         // high half: structural bits
+  uint32_t before;       // bit k: quote parity before the thread's step k
+  // the thread's 16-bit mask at step k, as step_mask's
+  __device__ __forceinline__ uint32_t mask(int k) const {
+    const uint32_t in_quote = ps[k] ^ (0u - ((before >> k) & 1u));
+    return (ps[k] >> 16) & ~in_quote & 0xffffu;
+  }
+};
+
+__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// The quote parity before chunk `chunk` > 0, for a whole warp: lane l reads
+// the status of chunk top - l, the window re-read while any chunk up to the
+// nearest inclusive one has not published, then moved 32 chunks down while
+// none of it is inclusive. Chunk 0 always publishes an inclusive word.
+__device__ __forceinline__ uint32_t look_back(const uint32_t* status,
+                                              int chunk) {
+  const int lane = threadIdx.x & 31;
+  uint32_t carry = 0;
+  for (int top = chunk - 1;;) {
+    const int idx = top - lane;
+    const uint32_t s = idx >= 0 ? ld_acquire(status + idx) : kInclusive;
+    const uint32_t none = __ballot_sync(kFull, s == 0u);
+    const uint32_t incl = __ballot_sync(kFull, (s & kInclusive) != 0u);
+    // lanes 0 .. the nearest inclusive one (all 32 when there is none)
+    const uint32_t upto = incl ? incl ^ (incl - 1u) : kFull;
+    if (none & upto) {
+      __nanosleep(32);
+      continue;
+    }
+    carry ^= __popc(__ballot_sync(kFull, s & 1u) & upto) & 1u;
+    if (incl) break;
+    top -= 32;
+  }
+  // lane 0 reads what the other lanes' acquires made visible
+  __syncwarp();
+  return carry;
+}
+
+// v[k] = this thread's 16 bytes of step k of chunk `chunk` (0 past n_bytes)
+template <int kNSteps>
+__device__ __forceinline__ void load_chunk(uint4 (&v)[kNSteps],
+                                           const uint4* __restrict__ in,
+                                           long long n_bytes, int chunk) {
+  const long long off0 =
+      (long long)chunk * kNSteps * kStepBytes + threadIdx.x * 16;
+#pragma unroll
+  for (int k = 0; k < kNSteps; ++k) {
+    const long long off = off0 + (long long)k * kStepBytes;
+    v[k] = off < n_bytes ? in[off >> 4] : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The thread's part of chunk `chunk` from its loaded bytes: cm.ps, and
+// cm.before = the parity before each of its steps from the lanes before it
+// in its warp; each warp's step parities (and bytes >= 0x80 when counting)
+// into buffer b of sh, for `finish_chunk` after a __syncthreads.
+template <int kNSteps, bool kAscii>
+__device__ __forceinline__ void classify_chunk(
+    const uint4 (&v)[kNSteps], long long n_bytes, int chunk,
+    const ByteClasses& c, int count_nonascii, OnePassShared& sh, int b,
+    ChunkMasks<kNSteps>& cm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long off0 =
+      (long long)chunk * kNSteps * kStepBytes + threadIdx.x * 16;
+  uint32_t odd = 0, high = 0;
+#pragma unroll
+  for (int k = 0; k < kNSteps; ++k) {
+    uint32_t q = 0, s = 0;
+    if (off0 + (long long)k * kStepBytes < n_bytes)
+      classify16<kAscii>(v[k], c, q, s);
+    const uint32_t p = prefix_xor16(q);
+    cm.ps[k] = (p & 0xffffu) | (s << 16);
+    odd |= ((p >> 15) & 1u) << k;
+    if (count_nonascii) high += high_bytes16(v[k]);
+  }
+  // the in-warp exclusive XOR scan of the step parities, all steps at once
+  uint32_t incl = odd;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl ^= y;
+  }
+  cm.before = incl ^ odd;
+  if (lane == 31) sh.step_par[b][warp] = incl;
+  if (count_nonascii) {
+    const unsigned h = __reduce_add_sync(kFull, high);
+    if (lane == 0) sh.high[b][warp] = h;
+  }
+}
+
+// After classify_chunk and a __syncthreads: cm.before gets the parity of
+// the chunk's full steps before each step and of the warps before this
+// one; returns the chunk's own quote parity.
+template <int kNSteps>
+__device__ __forceinline__ uint32_t finish_chunk(const OnePassShared& sh,
+                                                 int b,
+                                                 ChunkMasks<kNSteps>& cm) {
+  const int warp = threadIdx.x >> 5;
+  uint32_t total = 0, warp_excl = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    const uint32_t w = sh.step_par[b][i];
+    total ^= w;
+    warp_excl ^= i < warp ? w : 0u;
+  }
+  cm.before ^= (prefix_xor16(total) << 1) ^ warp_excl;
+  return __popc(total) & 1u;
+}
+
+// Thread 0 adds the chunk's bytes >= 0x80 to the count, then publishes the
+// chunk's status: its aggregate, or for chunk 0 its inclusive parity.
+__device__ __forceinline__ void publish_aggregate(const OnePass& g,
+                                                  const OnePassShared& sh,
+                                                  int b, int chunk,
+                                                  uint32_t par,
+                                                  uint32_t carry0) {
+  if (threadIdx.x != 0) return;
+  if (g.count_nonascii) {
+    unsigned long long h = 0;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) h += sh.high[b][i];
+    if (h) atomicAdd(g.nonascii, h);
+  }
+  st_release(g.status + chunk,
+             chunk == 0 ? kInclusive | (carry0 ^ par) : kAggregate | par);
+}
+
+// The status words of chunks chunk - 1 - threadIdx.x - 256 w, w <
+// kWindowWords (inclusive with parity 0 below chunk 0), by acquire loads.
+__device__ __forceinline__ void read_window(const uint32_t* status, int chunk,
+                                            uint32_t (&s)[kWindowWords]) {
+#pragma unroll
+  for (int w = 0; w < kWindowWords; ++w) {
+    const int idx = chunk - 1 - (int)threadIdx.x - kThreads * w;
+    s[w] = idx >= 0 ? ld_acquire(status + idx) : kInclusive;
+  }
+}
+
+// Each warp's window words as three ballots (unpublished, inclusive, odd)
+// into buffer b of sh, nearest chunk first.
+__device__ __forceinline__ void ballot_window(
+    const uint32_t (&s)[kWindowWords], OnePassShared& sh, int b) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int w = 0; w < kWindowWords; ++w) {
+    const uint32_t none = __ballot_sync(kFull, s[w] == 0u);
+    const uint32_t incl = __ballot_sync(kFull, (s[w] & kInclusive) != 0u);
+    const uint32_t odd = __ballot_sync(kFull, s[w] & 1u);
+    if (lane == 0) {
+      uint32_t* out = sh.window[b][w * kWarps + warp];
+      out[0] = none;
+      out[1] = incl;
+      out[2] = odd;
+    }
+  }
+}
+
+// The carry into the window's chunk from its ballots, nearest chunk first:
+// the parities up to and including the nearest inclusive word. False when a
+// chunk before that has not published, or no word of the window is
+// inclusive; then `look_back` walks the statuses instead.
+__device__ __forceinline__ bool window_carry(const OnePassShared& sh, int b,
+                                             uint32_t& carry) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < kWindowWords * kWarps; ++j) {
+    const uint32_t* w = sh.window[b][j];
+    const uint32_t upto = w[1] ? w[1] ^ (w[1] - 1u) : kFull;
+    if (w[0] & upto) return false;
+    acc ^= __popc(w[2] & upto);
+    if (w[1]) {
+      carry = acc & 1u;
+      return true;
+    }
+  }
+  return false;
+}
+
+// One pass over the input in chunks of kNSteps 4 KiB steps. The block takes
+// chunks from g.ticket until none is left and calls emit(chunk, cm) on
+// each, every thread with its ChunkMasks: mask(k) covers bytes chunk *
+// kNSteps * 4 KiB + k * 4 KiB + 16 * threadIdx.x .. + 15 (0 past n_bytes).
+// Every thread of the block calls it.
+//
+// A block works two chunks deep. In each round it classifies chunk n + 1
+// (loaded the round before), then resolves the carry into chunk n,
+// publishes chunk n's inclusive status and chunk n + 1's aggregate, and
+// emits chunk n; chunk n + 2's loads go out before the emit. Chunk n's
+// predecessors have published a round earlier, so its carry comes from a
+// window of 256 status words whose acquire loads were issued before the
+// classify: one __syncthreads a round, and no waiting.
+// When the window does not resolve, warp 0 walks the statuses
+// (`look_back`) behind a second __syncthreads. The non-ASCII count goes
+// into g.nonascii before a chunk's first publish, so the last chunk, whose
+// carry has seen every chunk before it, reads the whole count. A block
+// waits only on chunks before the one it resolves, and every chunk it holds
+// is later: the earliest unfinished chunk always runs, so no deadlock.
+template <int kNSteps, bool kAscii, class Emit>
+__device__ __forceinline__ void one_pass(const uint4* __restrict__ in,
+                                         long long n_bytes,
+                                         const ByteClasses& c,
+                                         const OnePass& g, OnePassShared& sh,
+                                         Emit emit) {
+  static_assert(kNSteps <= 16, "a warp's step parities are one 16-bit word");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t carry0 =
+      (uint32_t)(g.carry_ptr ? *g.carry_ptr : g.carry_in) & 1u;
+  if (threadIdx.x == 0) sh.next[0] = atomicAdd(g.ticket, 1);
+  __syncthreads();
+  int cur = sh.next[0];
+  if (cur >= g.n_chunks) return;
+  uint4 v[kNSteps];
+  load_chunk(v, in, n_bytes, cur);
+  int b = 1;
+  ChunkMasks<kNSteps> cm;
+  int ticket = 0;
+  if (threadIdx.x == 0) ticket = atomicAdd(g.ticket, 1);
+  classify_chunk<kNSteps, kAscii>(v, n_bytes, cur, c, g.count_nonascii, sh,
+                                  b, cm);
+  if (threadIdx.x == 0) sh.next[b] = ticket;
+  __syncthreads();
+  uint32_t par = finish_chunk(sh, b, cm);
+  int nxt = sh.next[b];
+  publish_aggregate(g, sh, b, cur, par, carry0);
+  if (nxt < g.n_chunks) load_chunk(v, in, n_bytes, nxt);
+  while (true) {
+    b ^= 1;
+    const bool has_next = nxt < g.n_chunks;
+    uint32_t s[kWindowWords];
+    read_window(g.status, cur, s);
+    ChunkMasks<kNSteps> cn;
+    if (has_next) {
+      if (threadIdx.x == 0) ticket = atomicAdd(g.ticket, 1);
+      classify_chunk<kNSteps, kAscii>(v, n_bytes, nxt, c, g.count_nonascii,
+                                      sh, b, cn);
+      if (threadIdx.x == 0) sh.next[b] = ticket;
+    }
+    ballot_window(s, sh, b);
+    __syncthreads();
+    uint32_t carry = carry0;
+    if (cur > 0 && !window_carry(sh, b, carry)) {
+      if (warp == 0) {
+        const uint32_t walked = look_back(g.status, cur);
+        if (lane == 0) sh.carry = walked;
+      }
+      __syncthreads();
+      carry = sh.carry;
+    }
+    if (threadIdx.x == 0) {
+      st_release(g.status + cur, kInclusive | (carry ^ par));
+      if (cur == g.n_chunks - 1) {
+        g.scalars[0] = (int)(carry ^ par);
+        g.scalars[1] =
+            g.count_nonascii ? (int)atomicAdd(g.nonascii, 0ull) : -1;
+      }
+    }
+    int after = g.n_chunks;
+    uint32_t par_next = 0;
+    if (has_next) {
+      par_next = finish_chunk(sh, b, cn);
+      after = sh.next[b];
+      publish_aggregate(g, sh, b, nxt, par_next, carry0);
+      if (after < g.n_chunks) load_chunk(v, in, n_bytes, after);
+    }
+    cm.before ^= 0u - carry;
+    emit(cur, cm);
+    if (!has_next) return;
+    cm = cn;
+    par = par_next;
+    cur = nxt;
+    nxt = after;
+  }
 }
 
 }  // namespace

@@ -15,9 +15,10 @@ strided-sublane gather (s8+st16) and the lane-placed int8 pack product
 The product ORs the eight block products, as the TPU kernel did. With the
 probe's weights (`weights_mmL`: lane 8g of block s to column 16s + g with
 weight 1, lane 8g + 1 with weight 16) they lie in disjoint columns and the
-OR is their sum; with other weights it is not. On a CUDA tensor each runs
-csrc/probe_widestore.cu (the gather, the pack product), on a CPU tensor
-its plain version. `probe_s8_st16` and `probe_mmL` are the TPU tool's
+OR is their sum; with other weights it is not. On a CUDA tensor the
+gather runs csrc/probe_widestore.cu and the pack product
+csrc/probe_concatmm.cu (the tensor cores), on a CPU tensor each its plain
+version. `probe_s8_st16` and `probe_mmL` are the TPU tool's
 probes: its input and NumPy statement, held against the port's result.
 
     python -m csv_simd_tpu_torch.tools.widestore_probe2 [mb ...]
@@ -121,6 +122,14 @@ def random_weights(device, seed: int) -> torch.Tensor:
     gen.manual_seed(seed)
     return torch.randint(-128, 128, (8 * LANES, LANES), dtype=torch.int8,
                          device=device, generator=gen)
+
+
+def overlap_weights(device) -> torch.Tensor:
+    """(1024, 128) int8: lane j of every block to column j with weight 1,
+    so out[:, j] is the OR of the eight int8(x[:, 128k + j]) where the
+    sum would add them."""
+    eye = torch.eye(LANES, dtype=torch.int8, device=device)
+    return eye.repeat(8, 1)
 
 
 def _s8_st16_input() -> np.ndarray:

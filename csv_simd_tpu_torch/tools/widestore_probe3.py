@@ -11,9 +11,10 @@ product (mmLb), on the (rows/8, 1024) view of the words.
   mmL and mmLb.
 
 The probe's weights (`weights_mmLb`) send lane 8g + l of block k to column
-16k + g with weight 1 for even l and 16 for odd l. On a CUDA tensor each
-runs csrc/probe_widestore.cu (the lane sum, the pack product), on a CPU
-tensor its plain version. `probe_laneload` and `probe_mmLb` are the TPU
+16k + g with weight 1 for even l and 16 for odd l. On a CUDA tensor the
+lane sum runs csrc/probe_widestore.cu and the pack product
+csrc/probe_concatmm.cu (the tensor cores), on a CPU tensor each its plain
+version. `probe_laneload` and `probe_mmLb` are the TPU
 tool's probes: its input and NumPy statement, held against the port's
 result.
 

@@ -681,3 +681,118 @@ def test_mosaic_and_widestore4_tools_gate_check_and_run_on_card(cuda_device):
                 ws4.run(x, reps=2, plain_reps=1)):
         assert all(v["ms"] > 0 and v["plain_ms"] > 0 and v["library_ms"] > 0
                    for v in got.values())
+
+
+def _quoted_span(chunks: int, seed: int) -> np.ndarray:
+    """chunks * 64 KiB of CSV-ish bytes (non-ASCII among them, and the
+    other dialects' quotes ' and 0xA2) with no 0x22 but one opened in the
+    first chunk and one closing it in the last, so B1's look-back carries
+    the default dialect's open quote across every chunk."""
+    rng = np.random.default_rng(seed)
+    arr = rng.choice(np.frombuffer(b"ab,\n\r x9;'\xa2\xc3\xa9", np.uint8),
+                     size=chunks << 16)
+    arr[100] = arr[arr.size - 100] = 0x22
+    return arr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunks", [1, 2, 33, 257, 1024])
+def test_b1_one_pass_across_chunks(cuda_device, chunks):
+    """B1's one pass at 1, 2, 33, 257 and 1,024 chunks (more than the
+    card holds at once), one quote open from chunk 0 to the last: three
+    dialects (the SWAR and the __vcmpeq4 classify), carries 0, 1 and a
+    device 1, count_nonascii both ways, and B1n's counts and prefix."""
+    from csv_simd_tpu_torch.ops.stage1_v4 import _row_emits_plain
+
+    arr = _quoted_span(chunks, chunks)
+    w = torch.from_numpy(arr.view("<i4").reshape(-1, 128).copy())
+    w = w.to(cuda_device)
+    dev_one = torch.ones((), dtype=torch.int32, device=cuda_device)
+    for kw in DIALECTS:
+        d = Dialect(**kw)
+        for carry in (0, 1, dev_one):
+            for cn in (True, False):
+                _same(stage1_fused_v4(w, carry, d, count_nonascii=cn),
+                      _stage1_v4_plain(w.view(-1), int(carry), d, cn))
+            got = stage1_fused_v4(w, carry, d, emit_counts=True,
+                                  emit_prefix=True)
+            _same(got[3:], _row_emits_plain(got[0]))
+    mask = _unpack_words(stage1_fused_v4(w, 1)[0], arr.size)
+    np.testing.assert_array_equal(mask, golden.structural_mask(arr,
+                                                               carry_in=1))
+
+
+def _unpack_words(packed: torch.Tensor, n: int) -> np.ndarray:
+    host = packed.cpu().numpy().reshape(-1)
+    return np.unpackbits(host.view("<u4").view(np.uint8),
+                         bitorder="little")[:n]
+
+
+@pytest.mark.gpu
+def test_b1_launches_and_graph_replays_agree(cuda_device):
+    """The same input launched three times in a row and replayed three
+    times from one captured CUDA graph (outputs cleared before each): a
+    chunk status word or ticket left from an earlier launch would show."""
+    arr = _quoted_span(1024, 3)
+    w = torch.from_numpy(arr.view("<i4").reshape(-1, 128).copy())
+    w = w.to(cuda_device)
+    one = torch.ones((), dtype=torch.int32, device=cuda_device)
+    want = _stage1_v4_plain(w.view(-1), 1, Dialect(), True)
+    for _ in range(3):
+        _same(stage1_fused_v4(w, one), want)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = stage1_fused_v4(w, one)
+    for _ in range(3):
+        for g in got:
+            g.zero_()
+        graph.replay()
+        _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunks", [1, 2, 33, 257])
+def test_v4full_cut_is_b1(cuda_device, chunks):
+    """T6's v4full cut runs B1's one pass: its words equal B1's narrow
+    words, carries 0, 1 and a device 1."""
+    from csv_simd_tpu_torch.tools import ablate2
+
+    arr = _quoted_span(chunks, 5 * chunks)
+    w = torch.from_numpy(arr.view("<i4").reshape(-1, 128).copy())
+    w = w.to(cuda_device)
+    for carry in (0, 1, torch.ones((), dtype=torch.int32,
+                                   device=cuda_device)):
+        _same((ablate2.mk(w, "v4full", 8, carry)[0],),
+              (stage1_fused_v4(w, carry)[0],))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 1000, 4097])
+def test_int8_products_on_tile_edges(cuda_device, m):
+    """Both instantiations of the tensor-core product at the edges of its
+    16-row tiles: mmL and mmLb (the OR of block products) with both
+    probes', random, all -128 and same-column weights, held against
+    _packmm_plain and never against a sum; the concat product with its
+    own weight sets."""
+    from csv_simd_tpu_torch.tools import widestore_probe2 as ws2
+    from csv_simd_tpu_torch.tools import widestore_probe3 as ws3
+    from csv_simd_tpu_torch.tools import widestore_probe4 as ws4
+    from csv_simd_tpu_torch.tools._common import random_words
+
+    x = random_words(8 * m, cuda_device, 3 * m)
+    wide = x.view(-1, 1024)
+    weights = {**ws2.weight_sets(cuda_device),
+               "min": torch.full((1024, 128), -128, dtype=torch.int8,
+                                 device=cuda_device),
+               "overlap": ws2.overlap_weights(cuda_device)}
+    before = _kernels.launch_counts()
+    for w in weights.values():
+        want = ws2._packmm_plain(wide, w)
+        _same((ws2.mm_lanes(x, w), ws3.mm_lanes_b(wide, w)), (want, want))
+    for w in ws4.weight_sets(cuda_device).values():
+        _same((ws4.concat_mm(wide, w),), (ws4._concat_mm_plain(wide, w),))
+    after = _kernels.launch_counts()
+    assert after["probe_ws_packmm"] == \
+        before["probe_ws_packmm"] + 2 * len(weights)
+    assert after["probe_concat_mm"] == before["probe_concat_mm"] + 3

@@ -281,3 +281,30 @@ def test_lab_tools_reject_bad_input():
         vnext.make(w, tile=1024)
     with pytest.raises(ValueError):
         vnext.make(w[:100])
+
+
+@pytest.mark.parametrize("dialect", ["default", "quote_a2"])
+def test_stage1_time_checks_each_classify_dialect(dialect):
+    """The B1 timing tool's check on its own kind of input (CSV-ish words,
+    seed 7, 64 rows) passes on the CPU, and the port's words there equal
+    the JAX B1 kernel's in interpret mode for the dialect (the SWAR and
+    the __vcmpeq4 classify on the card)."""
+    from csv_simd_tpu_torch.tools import stage1_time
+    from csv_simd_tpu_torch.tools._common import csv_words
+
+    d = stage1_time.DIALECTS[dialect]
+    words = csv_words(64, "cpu", 7)
+    assert stage1_time.check(words, d) == {"checks": 2, "max_abs_err": 0}
+    port = stage1_fused_v4(words, 1, d)[0]
+    jax_b1 = jstage1_fused_v4(jnp.asarray(words.numpy()), 1, d, row_tile=64,
+                              interpret=True, out_mode="narrow")[0]
+    np.testing.assert_array_equal(port.numpy(), np.asarray(jax_b1))
+
+
+def test_stage1_time_exits_2_without_a_card(monkeypatch):
+    from csv_simd_tpu_torch.tools import stage1_time
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        stage1_time.main([])
+    assert e.value.code == 2

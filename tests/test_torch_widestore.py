@@ -39,11 +39,20 @@ def _rand_words(shape, seed: int) -> np.ndarray:
     return rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
 
 
+WEIGHTS = ["mmL", "mmLb", "random", "min", "overlap"]
+
+
 def _weights(name: str) -> np.ndarray:
+    """Both probes' weights, full-range random int8, all -128, and every
+    block on the same columns (`overlap_weights`)."""
     if name == "mmL":
         return ws2.weights_mmL().numpy()
     if name == "mmLb":
         return ws3.weights_mmLb().numpy()
+    if name == "min":
+        return np.full((1024, 128), -128, np.int8)
+    if name == "overlap":
+        return ws2.overlap_weights("cpu").numpy()
     rng = np.random.default_rng(5)
     return rng.integers(-128, 128, (1024, 128)).astype(np.int8)
 
@@ -73,7 +82,7 @@ def test_s8_st16_matches_jax_tool_kernel(monkeypatch, inp):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("weights", ["mmL", "mmLb", "random"])
+@pytest.mark.parametrize("weights", WEIGHTS)
 @pytest.mark.parametrize("inp", ["probe", "random"])
 def test_mmL_matches_jax_tool_kernel(monkeypatch, inp, weights):
     """The probe's weights are the port's `weights_mmL`; on its nibble
@@ -106,7 +115,7 @@ def test_laneload_matches_jax_tool_kernel(monkeypatch, inp):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("weights", ["mmL", "mmLb", "random"])
+@pytest.mark.parametrize("weights", WEIGHTS)
 @pytest.mark.parametrize("inp", ["probe", "random"])
 def test_mmLb_matches_jax_tool_kernel(monkeypatch, inp, weights):
     tool = interpret_tool(monkeypatch, "widestore_probe3")
@@ -128,13 +137,14 @@ def test_mmLb_matches_jax_tool_kernel(monkeypatch, inp, weights):
 def test_or_of_block_products_is_their_sum_only_for_the_probe_weights():
     """One summed (M, 1024) @ (1024, 128) product (the library call
     `torch._int_mm`) equals the OR of the block products for both probes'
-    weights, whose blocks fill disjoint columns, and not for random int8
-    weights."""
+    weights, whose blocks fill disjoint columns, and not for random, all
+    -128 or same-column int8 weights."""
     x = torch.from_numpy(_rand_words((64, 1024), 6))
-    for name in ("mmL", "mmLb", "random"):
+    for name in WEIGHTS:
         w = torch.from_numpy(_weights(name))
         summed = torch._int_mm(x.to(torch.int8), w)
-        assert torch.equal(summed, ws2.packmm(x, w)) == (name != "random")
+        assert torch.equal(summed, ws2.packmm(x, w)) == \
+            (name in ("mmL", "mmLb"))
 
 
 @pytest.mark.parametrize("m", [1, 7, 64, 65])
