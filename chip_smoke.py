@@ -20,8 +20,13 @@ Phases, each of which fails the run on any error:
    layouts (B3 fold at tiles 8, 64 and 512, B4 sequential, B5 v2, B6 v1)
    over the same inputs, carries and dialects, each unpacked with its
    own inverse and held against golden.structural_mask, B3 with a
-   device-scalar carry too; at 64 MiB B3 against golden and against B1's
-   words, with the carry chained on the card over four chunks; B1n's
+   device-scalar carry too; the relayouts that make B3 and B6 of B1's
+   words (fold_words at tiles 8 to 16,384, v1_words with its count from
+   several words on) on full-range words, and B3 at tiles 2,048, 3,200
+   and 16,384 with one quote open across a 64 KiB chunk of B1's one pass
+   and a fold tile, against golden too; at 64 MiB B3 against golden and
+   against B1's words, with the carry chained on the card over four
+   chunks; B1n's
    row counts and prefix (narrow, and the prefix wide) over the corpus
    and fuzz inputs; each probe kernel (stream, ALU, ablation) with its
    side words against its plain version at several sizes; and the
@@ -59,7 +64,8 @@ Phases, each of which fails the run on any error:
    three timed batches of lookups; create_streaming in 64 MiB chunks (B3
    once a chunk, the carry chained on the card); build_index_device on
    the block; and the entry points of B4, B5 and B6 on the block;
-5. kernel and plain times on the card at the paths' shapes, and the
+5. kernel and plain times on the card at the paths' shapes (B3 and B6 at
+   64 MiB also from CUDA graphs, beside their eager times), and the
    parts of create at 1 GiB;
 6. the measurement path (csv_simd_tpu_torch.tools, each tool's run as
    `python -m csv_simd_tpu_torch.tools.<name>` runs it, after its gate in
@@ -82,12 +88,13 @@ Phases, each of which fails the run on any error:
 7. a torch.profiler trace (utils.profiling.device_trace) of a warm
    create_packed and a warm create at 1 GiB: the five device ops that
    took the most time and the device-busy share of the traced window.
-   The trace must name B1's and B3's kernels, and every `chunk_parity`
-   launch in it must be B3's pass A: B1 reads its input once. A second
+   The trace must name B1's one pass (`mask_pack`, at least twice: B3
+   runs it too) and B3's relayout (`fold_words`), and hold no
+   `chunk_parity`: both builds read their input once. A second
    trace gives each probe and lab kernel's device time a launch at 64 MiB
    (the wide-store kernels among them), with B1's one pass (`mask_pack`)
    beside the v4full cut's (`ablate2_v4full`); it must name the Mosaic
-   probes' kernels, `ablate2_v4full` and both int8 products,
+   probes' kernels, `ablate2_v4full`, `v1_words` and both int8 products,
    `concat_mm<true, false>` (the concat sum) and `concat_mm<false, true>`
    (the OR of block products).
 
@@ -645,6 +652,65 @@ def gate_pack_block(gate: Gate, device, block: bytes, golden) -> dict:
         device), "arr": arr, "mask": want}
 
 
+def gate_relayouts(gate: Gate, device, golden) -> None:
+    """The relayout kernels alone against their plain versions on
+    full-range sequential words: fold_words at tiles 8 to 16,384 and
+    v1_words with its count from the first, a middle and the last tile's
+    first word (under B3's and B6's names); then B3 at tiles 2,048,
+    3,200 (the two-pass kernel's largest) and 16,384 on CSV-ish bytes
+    with one quote opened 100 bytes before the end of B1's first 64 KiB
+    chunk and closed past the first fold tile, carries 0, 1 and a device
+    1, against its plain version and golden."""
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.ops.stage1_pallas import _v1_from_seq_plain
+    from csv_simd_tpu_torch.ops.stage1_v3 import (
+        _fold_from_seq_plain,
+        stage1_fused,
+        stage1_swar_xla,
+        unpack_packed_host,
+    )
+
+    rng = np.random.default_rng(8)
+
+    def seq_words(n: int) -> torch.Tensor:
+        return torch.from_numpy(rng.integers(
+            -2**31, 2**31, n, dtype=np.int64).astype(np.int32)).to(device)
+
+    for rows, tile in ((8, 8), (48, 24), (4096, 512), (8192, 2048),
+                       (12_800, 3200), (32_768, 16_384), (131_072, 512)):
+        seq = seq_words(rows * 16)
+        gate.same("stage1_fold", _kernels.fold_words(seq, tile),
+                  _fold_from_seq_plain(seq, tile),
+                  f"fold_words rows={rows} tile={tile}")
+    for rows, count_from in ((32, 0), (1024, 77), (524_288, 0),
+                             (524_288, 524_288 * 4 - 1024 * 4)):
+        seq = seq_words(rows * 4)
+        for g, w, part in zip(_kernels.v1_words(seq, count_from),
+                              _v1_from_seq_plain(seq, count_from),
+                              ("words", "count")):
+            gate.same("stage1_v1", g, w,
+                      f"v1_words rows={rows} count_from={count_from} {part}")
+    one = torch.ones((), dtype=torch.int32, device=device)
+    alphabet = np.frombuffer(b"ab,\n\r x9;", np.uint8)
+    for tile in (2048, 3200, 16_384):
+        rows = 4 * tile
+        arr = rng.choice(alphabet, size=rows * 512)
+        arr[(1 << 16) - 100] = arr[tile * 512 + 100] = 0x22
+        w = torch.from_numpy(arr.view("<i4").reshape(rows, 128)).to(device)
+        for carry in (0, 1, one):
+            got = stage1_fused(w, carry, row_tile=tile)
+            for g, x, part in zip(got, stage1_swar_xla(w, int(carry),
+                                                       row_tile=tile),
+                                  ("words", "parity")):
+                gate.same("stage1_fold", g, x,
+                          f"tile={tile} carry={int(carry)} {part}")
+        mask = unpack_packed_host(got[0].cpu().numpy(), arr.size, tile)
+        if not np.array_equal(mask, golden.structural_mask(arr, carry_in=1)):
+            raise AssertionError(f"stage1_fold at tile {tile} differs from "
+                                 "golden")
+    torch.cuda.synchronize()
+
+
 def gate_probes(gate: Gate, device) -> None:
     """Each probe and lab kernel, outputs and side words, against its
     plain version at several sizes and carries (the tools' own gates);
@@ -1053,6 +1119,7 @@ def main() -> int:
               for c in cases] + fuzz_arrays()
     gate_pack(gate, device, arrays, golden)
     blk = gate_pack_block(gate, device, block, golden)
+    gate_relayouts(gate, device, golden)
     # the direct fold pack at 64 MiB against B3 and golden
     gate.record("vnext", vnext.check(blk["words"]))
     gate_probes(gate, device)
@@ -1201,7 +1268,13 @@ def main() -> int:
     ms["stage1_seq_plain"] = cuda_ms(lambda: stage1_seq_xla(bw, 0), 5)
     ms["stage1_v2"] = cuda_ms(lambda: stage1_pallas_v2(bw, 0), 20)
     ms["stage1_v2_plain"] = cuda_ms(lambda: stage1_swar_jnp(bw, 0), 5)
-    ms["stage1_v1"] = cuda_ms(lambda: stage1_pallas(bb, 0), 20)
+    # B3 and B6 at 64 MiB from CUDA graphs (the kernels alone; B6's is its
+    # `ms`) beside their eager times, which the wrappers' host work sets
+    # at this size
+    ms["stage1_fold_64MiB"] = graph_ms(lambda: stage1_fused(bw, 0), 20)
+    ms["stage1_fold_64MiB_eager"] = cuda_ms(lambda: stage1_fused(bw, 0), 20)
+    ms["stage1_v1"] = graph_ms(lambda: stage1_pallas(bb, 0), 20)
+    ms["stage1_v1_eager"] = cuda_ms(lambda: stage1_pallas(bb, 0), 20)
     ms["stage1_v1_plain"] = cuda_ms(
         lambda: _stage1_pallas_plain(bb, 0, d), 5)
 
@@ -1402,14 +1475,14 @@ def main() -> int:
                                              profiling.TRACE_FILE))
     top_ops = sorted(per.items(), key=lambda kv: -kv[1][0])[:5]
     traced = {k: sum(n for name, (_, n) in per.items() if k in name)
-              for k in ("mask_pack", "pack_fold", "chunk_parity")}
-    for kernel, what in (("mask_pack", "B1"), ("pack_fold", "B3")):
-        if not traced[kernel]:
-            raise AssertionError(f"the trace names no {what} kernel "
-                                 f"({kernel})")
-    # B1 reads the input once: every chunk_parity launch is B3's pass A
-    if traced["chunk_parity"] != traced["pack_fold"]:
-        raise AssertionError(f"B1's build launched chunk_parity: {traced}")
+              for k in ("mask_pack", "fold_words", "chunk_parity")}
+    # B1's one pass runs in both builds: B3 is it and then fold_words
+    if traced["mask_pack"] < 2 or not traced["fold_words"]:
+        raise AssertionError(f"the trace lacks B1's one pass twice or B3's "
+                             f"relayout (fold_words): {traced}")
+    # both builds read their input once
+    if traced["chunk_parity"]:
+        raise AssertionError(f"a warm build launched chunk_parity: {traced}")
     # the probes' kernels in a second trace, at 64 MiB: device time a
     # launch by name, beside phase 6's graph and eager times
     probe_ops = probe_trace(random_words(BLOCK_BYTES // 512, device, 64))
@@ -1417,7 +1490,7 @@ def main() -> int:
     # and mmLb OR of block products
     for kernel in ("mm32_pack", "lane_gather", "cmp8", "select8", "shift_add",
                    "usum", "concat_mm<true, false>", "concat_mm<false, true>",
-                   "ablate2_v4full"):
+                   "ablate2_v4full", "v1_words"):
         if kernel not in probe_ops:
             raise AssertionError(f"the probe trace names no {kernel}: "
                                  f"{sorted(probe_ops)}")
@@ -1430,6 +1503,9 @@ def main() -> int:
                                  "stage1_fold") else "64 MiB"
         print(f"  {name} at {at}: kernel {ms[name]:.4f} ms, plain "
               f"{ms[name + '_plain']:.4f} ms")
+    print(f"  B3 and B6 at 64 MiB (CUDA graph ms / eager ms): stage1_fold "
+          f"{ms['stage1_fold_64MiB']:.4f} / {ms['stage1_fold_64MiB_eager']:.4f}"
+          f", stage1_v1 {ms['stage1_v1']:.4f} / {ms['stage1_v1_eager']:.4f}")
     print(f"  stage1_fold at 1 GiB: {gb / ms['stage1_fold'] * 1e3:.1f} GB/s "
           f"of padded input; stage1_v4: "
           f"{gb / ms['stage1_v4'] * 1e3:.1f} GB/s")
@@ -1534,7 +1610,7 @@ def main() -> int:
         ("prefix_for_packed", "cuda", "prefix.cu",
          "csv_simd_tpu/offsetfree.py:107", "row_prefix", l_packed,
          "row_prefix"),
-        ("stage1_fused", "cuda", "stage1_pack.cu",
+        ("stage1_fused", "cuda", "relayout.cu",
          "csv_simd_tpu/ops/stage1_v3.py:106", "stage1_fold", l_create,
          "stage1_fold"),
         ("stage1_fused_seq", "cuda", "stage1_v4.cu",
@@ -1543,7 +1619,7 @@ def main() -> int:
         ("stage1_pallas_v2", "cuda", "stage1_pack.cu",
          "csv_simd_tpu/ops/stage1_v2.py:66", "stage1_v2", l_v2,
          "stage1_v2"),
-        ("stage1_pallas", "cuda", "stage1_pack.cu",
+        ("stage1_pallas", "cuda", "relayout.cu",
          "csv_simd_tpu/ops/stage1_pallas.py:73", "stage1_v1", l_v1,
          "stage1_v1"),
         ("stage1_fused_v4[emit]", "cuda", "stage1_v4.cu",
@@ -1563,7 +1639,7 @@ def main() -> int:
          "probe_ablate", _sum(l_abl), "ablate"),
         ("ablate2", "cuda", "probe_ablate2.cu", "tools/ablate2.py:136",
          "probe_ablate2", _sum(l_ab2), "ablate2"),
-        ("kbench", "cuda", "probe_kbench.cu", "tools/kbench.py:142",
+        ("kbench", "cuda", "relayout.cu", "tools/kbench.py:142",
          "probe_kbench", _sum(l_kb), "kbench"),
         ("vnext", "cuda", "probe_vnext.cu", "tools/vnext.py:85",
          "probe_vnext", _sum(l_vn), "vnext"),

@@ -5,7 +5,8 @@ builds the index on an NVIDIA card with two hand-written Hopper kernels
 (the stage-1 build, csrc/stage1_v4.cu, and the row popcount prefix,
 csrc/prefix.cu), and `PackedDeviceTape` serves batched field lookups and
 typed columns from it. The offsets route: `create(path)` builds the
-fold-layout words with kernel B3 (csrc/stage1_pack.cu), copies them to
+fold-layout words with kernel B3 (the stage-1 build's one pass, then
+csrc/relayout.cu `fold_words`), copies them to
 the host and extracts the offsets there into a `Tape`, which
 `DeviceTape.from_tape` serves from the card; `create_streaming` does the
 same chunk by chunk. Every function takes an explicit device; the

@@ -29,6 +29,8 @@ import time
 
 import torch
 
+from .config import DEFAULT_DIALECT
+
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -38,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches per kernel wrapper, for showing that a run went through them
 LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
             "stage1_fold": 0, "stage1_v2": 0, "stage1_v1": 0,
+            "fold_words": 0, "v1_words": 0,
             "probe_stream_write": 0, "probe_stream_read": 0, "probe_alu": 0,
             "probe_ablate": 0, "probe_ablate2": 0, "probe_kbench": 0,
             "probe_vnext": 0, "probe_ws_gather": 0, "probe_ws_lanesum": 0,
@@ -45,9 +48,6 @@ LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
             "probe_mosaic_gather": 0, "probe_mosaic_cmp8": 0,
             "probe_mosaic_select8": 0, "probe_mosaic_shift_add": 0,
             "probe_mosaic_usum": 0, "probe_concat_mm": 0}
-# layout codes of csrc/stage1_pack.cu
-_FOLD, _V2, _V1 = 0, 1, 2
-
 _lib = None
 _alu_op_counts = None
 _alu_const_arrays = {}
@@ -138,13 +138,15 @@ def _library():
         lib.csv_stage1_v4.restype = i
         lib.csv_stage1_v4_prefix_scratch.argtypes = [ll]
         lib.csv_stage1_v4_prefix_scratch.restype = ll
-        lib.csv_stage1_fold_max_tile.argtypes = []
-        lib.csv_stage1_fold_max_tile.restype = i
-        lib.csv_stage1_pack_chunks.argtypes = [i, ll, i]
-        lib.csv_stage1_pack_chunks.restype = ll
-        lib.csv_stage1_pack.argtypes = [i, vp, ll, vp, vp, vp, vp, i, i, i,
-                                        i, i, i, i, i, vp]
-        lib.csv_stage1_pack.restype = i
+        lib.csv_fold_words.argtypes = [vp, ll, i, vp, vp]
+        lib.csv_fold_words.restype = i
+        lib.csv_v1_words.argtypes = [vp, ll, ll, vp, vp, vp]
+        lib.csv_v1_words.restype = i
+        lib.csv_stage1_v2_chunks.argtypes = [ll]
+        lib.csv_stage1_v2_chunks.restype = ll
+        lib.csv_stage1_v2.argtypes = [vp, ll, vp, vp, vp, vp, i, i, i, i, i,
+                                      i, i, vp]
+        lib.csv_stage1_v2.restype = i
         lib.csv_row_prefix_scratch.argtypes = [ll]
         lib.csv_row_prefix_scratch.restype = ll
         lib.csv_row_prefix.argtypes = [vp, ll, vp, vp, vp]
@@ -170,9 +172,7 @@ def _library():
         lib.csv_probe_ablate2.argtypes = [i, vp, ll, i, vp, i, vp, vp, vp, vp,
                                           vp]
         lib.csv_probe_ablate2.restype = i
-        lib.csv_probe_kbench_chunks.argtypes = [ll]
-        lib.csv_probe_kbench_chunks.restype = ll
-        lib.csv_probe_kbench.argtypes = [i, vp, ll, i, vp, i, vp, vp, vp, vp]
+        lib.csv_probe_kbench.argtypes = [i, vp, ll, i, vp, i, vp, vp, vp]
         lib.csv_probe_kbench.restype = i
         lib.csv_probe_vnext_max_tile.argtypes = []
         lib.csv_probe_vnext_max_tile.restype = i
@@ -246,6 +246,37 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _one_pass(data: torch.Tensor, carry_in, dialect, what: str,
+              scalars: torch.Tensor, count_nonascii: bool = False,
+              counts=None, prefix=None, prefix_scratch=None) -> torch.Tensor:
+    """B1's launch (csrc/stage1_v4.cu) over the bytes of `data`, on its
+    device's current stream, inside `torch.cuda.device(data.device)` ->
+    its sequential words (flat int32; bit m of word w covers byte 32w + m).
+    The parity out goes to scalars[0], the non-ASCII count (-1: not
+    counted) to scalars[1]; counts, prefix and prefix_scratch are B1n's
+    outputs or None. Raises on a launch error; counts nothing."""
+    n_bytes = data.numel() * data.element_size()
+    structural = _structural(dialect, what)
+    lib = _library()
+    dev = data.device
+    carry_ptr, carry_int, _keep = _carry(carry_in, dev)
+    n_chunks = lib.csv_stage1_v4_chunks(n_bytes)
+    out = torch.empty(n_bytes // 32, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
+    counter = torch.empty(1, dtype=torch.int64, device=dev)
+    err = lib.csv_stage1_v4(
+        data.data_ptr(), n_bytes, out.data_ptr(), scratch.data_ptr(),
+        scalars.data_ptr(), counter.data_ptr(), carry_ptr, carry_int,
+        int(bool(count_nonascii)), dialect.quote, *structural,
+        _ptr(counts), _ptr(prefix), _ptr(prefix_scratch), _stream(dev))
+    _raise_on(err, what)
+    return out
+
+
 def stage1_v4(words: torch.Tensor, carry_in, dialect,
               count_nonascii: bool, emit_counts: bool = False,
               emit_prefix: bool = False):
@@ -265,78 +296,138 @@ def stage1_v4(words: torch.Tensor, carry_in, dialect,
     if emit and n_bytes % 512:
         raise ValueError(f"stage1_v4: row counts need whole 512-byte rows, "
                          f"got {n_bytes} bytes")
-    structural = _structural(dialect, "stage1_v4")
-    lib = _library()
     dev = words.device
     rows = n_bytes // 512
     with torch.cuda.device(dev):
-        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
-        n_chunks = lib.csv_stage1_v4_chunks(n_bytes)
-        out = torch.empty(n_bytes // 32, dtype=torch.int32, device=dev)
-        scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
         scalars = torch.empty(2, dtype=torch.int32, device=dev)
-        counter = torch.empty(1, dtype=torch.int64, device=dev)
         counts = prefix = prefix_scratch = None
         if emit_counts:
             counts = torch.empty(rows, dtype=torch.int32, device=dev)
         if emit_prefix:
             prefix = torch.empty(rows, dtype=torch.int32, device=dev)
             prefix_scratch = torch.empty(
-                lib.csv_stage1_v4_prefix_scratch(n_bytes), dtype=torch.int32,
-                device=dev)
-        err = lib.csv_stage1_v4(
-            words.data_ptr(), n_bytes, out.data_ptr(), scratch.data_ptr(),
-            scalars.data_ptr(), counter.data_ptr(), carry_ptr, carry_int,
-            int(bool(count_nonascii)), dialect.quote, *structural,
-            _ptr(counts), _ptr(prefix), _ptr(prefix_scratch),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "stage1_v4")
+                _library().csv_stage1_v4_prefix_scratch(n_bytes),
+                dtype=torch.int32, device=dev)
+        out = _one_pass(words, carry_in, dialect, "stage1_v4", scalars,
+                        count_nonascii, counts, prefix, prefix_scratch)
     LAUNCHES["stage1_v4_emit" if emit else "stage1_v4"] += 1
     return out, scalars[0], scalars[1], counts, prefix
 
 
-def _stage1_pack(layout: int, name: str, data: torch.Tensor, carry_in,
-                 dialect, tile: int = 0):
-    """One launch of csrc/stage1_pack.cu -> (packed flat int32, parity
-    0-d int32, structural count 0-d int32)."""
+def _check_stage1_bytes(data: torch.Tensor, what: str) -> int:
+    """Raise unless data holds a positive multiple of 4 KiB; returns its
+    byte count."""
     n_bytes = data.numel() * data.element_size()
     if n_bytes == 0 or n_bytes % 4096:
-        raise ValueError(f"{name}: {n_bytes} bytes is not a positive "
+        raise ValueError(f"{what}: {n_bytes} bytes is not a positive "
                          "multiple of 4096")
-    structural = _structural(dialect, name)
-    lib = _library()
-    if layout == _FOLD:
-        rows = n_bytes // 512
-        max_tile = lib.csv_stage1_fold_max_tile()
-        if tile <= 0 or tile % 8 or rows % tile or tile > max_tile:
-            raise ValueError(
-                f"{name}: tile {tile} must be a positive multiple of 8 "
-                f"that divides the {rows} rows, at most {max_tile}")
-    dev = data.device
-    with torch.cuda.device(dev):
-        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
-        n_chunks = lib.csv_stage1_pack_chunks(layout, n_bytes, tile)
-        out = torch.empty(n_bytes // 32, dtype=torch.int32, device=dev)
-        scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
-        scalars = torch.empty(3, dtype=torch.int32, device=dev)
-        err = lib.csv_stage1_pack(
-            layout, data.data_ptr(), n_bytes, out.data_ptr(),
-            scratch.data_ptr(), scalars.data_ptr(), carry_ptr, carry_int,
-            dialect.quote, *structural, tile,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
-    return out, scalars[0], scalars[2]
+    return n_bytes
+
+
+def _check_fold_tile(rows: int, tile: int, what: str) -> None:
+    if tile <= 0 or tile % 8 or rows % tile:
+        raise ValueError(f"{what}: tile {tile} must be a positive multiple "
+                         f"of 8 that divides the {rows} rows")
+
+
+def _launch_fold_words(seq: torch.Tensor, rows: int, tile: int,
+                       what: str) -> torch.Tensor:
+    """csrc/relayout.cu `fold_words` on B1's words of rows x 512 bytes ->
+    (rows/8, 128) int32 fold-layout words. Counts nothing."""
+    out = torch.empty((rows // 8, 128), dtype=torch.int32, device=seq.device)
+    _raise_on(_library().csv_fold_words(seq.data_ptr(), rows, tile,
+                                        out.data_ptr(), _stream(seq.device)),
+              what)
+    return out
+
+
+def _launch_v1_words(seq: torch.Tensor, rows: int, count_from: int,
+                     count: torch.Tensor, what: str) -> torch.Tensor:
+    """csrc/relayout.cu `v1_words` on B1's words of rows x 128 bytes ->
+    (rows/32, 128) int32 v1-layout words; count (a one-int view on the
+    card) gets the structural count of the words from flat index
+    count_from on. Counts nothing."""
+    out = torch.empty((rows // 32, 128), dtype=torch.int32,
+                      device=seq.device)
+    _raise_on(_library().csv_v1_words(seq.data_ptr(), rows, count_from,
+                                      out.data_ptr(), count.data_ptr(),
+                                      _stream(seq.device)), what)
+    return out
 
 
 def stage1_fold(words: torch.Tensor, carry_in, dialect, tile: int):
     """Kernel B3 on CUDA (rows, 128) int32 byte quads -> (fold-layout
-    packed (rows/8, 128) int32, parity 0-d int32). `tile` is the fold
-    tile in rows: a multiple of 8 that divides rows."""
+    packed (rows/8, 128) int32, parity 0-d int32): B1's one pass, then
+    `fold_words` on its words. `tile` is the fold tile in rows: a
+    multiple of 8 that divides rows (any size)."""
     _check_words(words, "stage1_fold")
-    packed, parity, _count = _stage1_pack(_FOLD, "stage1_fold", words,
-                                          carry_in, dialect, tile)
-    return packed.view(-1, 128), parity
+    rows = _check_stage1_bytes(words, "stage1_fold") // 512
+    _check_fold_tile(rows, tile, "stage1_fold")
+    dev = words.device
+    with torch.cuda.device(dev):
+        scalars = torch.empty(2, dtype=torch.int32, device=dev)
+        seq = _one_pass(words, carry_in, dialect, "stage1_fold", scalars)
+        out = _launch_fold_words(seq, rows, tile, "stage1_fold")
+    LAUNCHES["stage1_fold"] += 1
+    return out, scalars[0]
+
+
+def fold_words(seq: torch.Tensor, tile: int) -> torch.Tensor:
+    """`fold_words` alone on CUDA: B1's sequential words of rows x 512
+    bytes (rows * 16 int32, any shape) -> B3's fold-layout (rows/8, 128)
+    int32 at `tile` rows (a multiple of 8 that divides rows)."""
+    _check_words(seq, "fold_words")
+    if seq.numel() == 0 or seq.numel() % 128:
+        raise ValueError(f"fold_words: {seq.numel()} words is not a "
+                         "positive multiple of 128 (8 rows of 16)")
+    rows = seq.numel() // 16
+    _check_fold_tile(rows, tile, "fold_words")
+    with torch.cuda.device(seq.device):
+        out = _launch_fold_words(seq, rows, tile, "fold_words")
+    LAUNCHES["fold_words"] += 1
+    return out
+
+
+def _v1(b2d: torch.Tensor, carry_in, dialect, count_from, what: str):
+    """B1's one pass over (rows, 128) uint8, then `v1_words` -> (words
+    (rows/32, 128) int32, count 0-d int32 of the words from flat index
+    count_from on, parity 0-d int32)."""
+    rows = _check_stage1_bytes(b2d, what) // 128
+    dev = b2d.device
+    with torch.cuda.device(dev):
+        scalars = torch.empty(3, dtype=torch.int32, device=dev)
+        seq = _one_pass(b2d, carry_in, dialect, what, scalars)
+        out = _launch_v1_words(seq, rows, count_from, scalars[2:], what)
+    return out, scalars[2], scalars[0]
+
+
+def stage1_v1(b2d: torch.Tensor, carry_in, dialect):
+    """Kernel B6 on CUDA (rows, 128) uint8, rows % 32 == 0 -> (v1
+    sublane-major packed (rows/32, 128) int32, count 0-d int32, parity
+    0-d int32): B1's one pass, then `v1_words` on its words."""
+    _check_words(b2d, "stage1_v1", torch.uint8)
+    out = _v1(b2d, carry_in, dialect, 0, "stage1_v1")
+    LAUNCHES["stage1_v1"] += 1
+    return out
+
+
+def v1_words(seq: torch.Tensor, count_from: int = 0):
+    """`v1_words` alone on CUDA: B1's sequential words of rows x 128
+    bytes (rows * 4 int32, rows % 32 == 0, any shape) -> (v1-layout
+    words (rows/32, 128) int32, count 0-d int32: the structural count
+    of the words from flat index count_from on)."""
+    _check_words(seq, "v1_words")
+    if seq.numel() == 0 or seq.numel() % 128:
+        raise ValueError(f"v1_words: {seq.numel()} words is not a positive "
+                         "multiple of 128 (32 rows of 4)")
+    if count_from < 0:
+        raise ValueError(f"v1_words: count_from {count_from} is negative")
+    with torch.cuda.device(seq.device):
+        count = torch.empty(1, dtype=torch.int32, device=seq.device)
+        out = _launch_v1_words(seq, seq.numel() // 4, count_from, count,
+                               "v1_words")
+    LAUNCHES["v1_words"] += 1
+    return out, count[0]
 
 
 def stage1_v2(words: torch.Tensor, carry_in, dialect):
@@ -344,19 +435,24 @@ def stage1_v2(words: torch.Tensor, carry_in, dialect):
     (v2-layout packed (rows/8, 128) int32, count 0-d int32, parity 0-d
     int32)."""
     _check_words(words, "stage1_v2")
-    packed, parity, count = _stage1_pack(_V2, "stage1_v2", words, carry_in,
-                                         dialect)
-    return packed.view(-1, 128), count, parity
-
-
-def stage1_v1(b2d: torch.Tensor, carry_in, dialect):
-    """Kernel B6 on CUDA (rows, 128) uint8, rows % 32 == 0 -> (v1
-    sublane-major packed (rows/32, 128) int32, count 0-d int32, parity
-    0-d int32)."""
-    _check_words(b2d, "stage1_v1", torch.uint8)
-    packed, parity, count = _stage1_pack(_V1, "stage1_v1", b2d, carry_in,
-                                         dialect)
-    return packed.view(-1, 128), count, parity
+    n_bytes = _check_stage1_bytes(words, "stage1_v2")
+    structural = _structural(dialect, "stage1_v2")
+    lib = _library()
+    dev = words.device
+    with torch.cuda.device(dev):
+        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
+        out = torch.empty((n_bytes // 512 // 8, 128), dtype=torch.int32,
+                          device=dev)
+        scratch = torch.empty(2 * lib.csv_stage1_v2_chunks(n_bytes),
+                              dtype=torch.int32, device=dev)
+        scalars = torch.empty(3, dtype=torch.int32, device=dev)
+        err = lib.csv_stage1_v2(
+            words.data_ptr(), n_bytes, out.data_ptr(), scratch.data_ptr(),
+            scalars.data_ptr(), carry_ptr, carry_int, dialect.quote,
+            *structural, _stream(dev))
+    _raise_on(err, "stage1_v2")
+    LAUNCHES["stage1_v2"] += 1
+    return out, scalars[2], scalars[0]
 
 
 def row_prefix(packed: torch.Tensor) -> torch.Tensor:
@@ -539,7 +635,7 @@ def probe_ablate(words: torch.Tensor, mode: str, tile: int, carry_in):
     return out, side
 
 
-# cuts of csrc/probe_ablate2.cu and variants of csrc/probe_kbench.cu
+# cuts of csrc/probe_ablate2.cu and variants of the kbench probe
 ABLATE2_CUTS = ("cls22", "cls18", "prep", "mm1", "pack1", "pack2", "px",
                 "lane", "v4full")
 ABLATE2_SIDE = ("cls22", "cls18", "prep", "mm1")
@@ -580,9 +676,11 @@ def probe_ablate2(words: torch.Tensor, cut: str, tile: int, carry_in):
 
 
 def probe_kbench(b2d: torch.Tensor, variant: str, tile: int, carry_in):
-    """csrc/probe_kbench.cu on CUDA (rows, 128) uint8 -> (v1-layout words
+    """The v1-layout variants on CUDA (rows, 128) uint8 -> (v1-layout words
     (rows/32, 128) int32, count 0-d int32: the structural count of the
-    last `tile` rows, plus the carry-in for nopar and lanescan)."""
+    last `tile` rows, plus the carry-in for nopar and lanescan). nopar and
+    lanescan launch csrc/probe_kbench.cu; full is B6's pair, B1's one pass
+    and `v1_words`, with the count limited to the last tile."""
     _check_words(b2d, "probe_kbench", torch.uint8)
     if b2d.dim() != 2 or b2d.shape[1] != 128:
         raise ValueError(f"probe_kbench: expected (rows, 128) uint8, got "
@@ -594,21 +692,24 @@ def probe_kbench(b2d: torch.Tensor, variant: str, tile: int, carry_in):
     if tile <= 0 or tile % 32 or rows == 0 or rows % tile:
         raise ValueError(f"probe_kbench: tile {tile} must be a positive "
                          f"multiple of 32 that divides the {rows} rows")
+    if variant == "full":
+        out, count, _parity = _v1(b2d, carry_in, DEFAULT_DIALECT,
+                                  (rows - tile) // 32 * 128, "probe_kbench")
+        LAUNCHES["probe_kbench"] += 1
+        return out, count
     lib = _library()
     dev = b2d.device
     with torch.cuda.device(dev):
         carry_ptr, carry_int, _keep = _carry(carry_in, dev)
-        n_chunks = lib.csv_probe_kbench_chunks(rows * 128)
         out = torch.empty((rows // 32, 128), dtype=torch.int32, device=dev)
-        scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
-        scalars = torch.empty(3, dtype=torch.int32, device=dev)
+        count = torch.empty(1, dtype=torch.int32, device=dev)
         err = lib.csv_probe_kbench(
             KBENCH_VARIANTS.index(variant), b2d.data_ptr(), rows, tile,
-            carry_ptr, carry_int, out.data_ptr(), scratch.data_ptr(),
-            scalars.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            carry_ptr, carry_int, out.data_ptr(), count.data_ptr(),
+            _stream(dev))
     _raise_on(err, "probe_kbench")
     LAUNCHES["probe_kbench"] += 1
-    return out, scalars[2]
+    return out, count[0]
 
 
 def probe_vnext(words: torch.Tensor, tile: int, carry_in):

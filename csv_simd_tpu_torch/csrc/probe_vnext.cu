@@ -13,11 +13,12 @@
 //
 // What bounds it on an H100: HBM bandwidth (read N twice, write N/8).
 //
-// What the design does about it. B3 (stage1_pack.cu `pack_fold`) walks its
-// rows in order and ORs each thread's nibbles into a shared copy of its
-// tiles' words with shared atomics, since one word takes a nibble from 8
-// rows T/8 apart. Here each word is built whole by one thread, so a thread
-// needs the quote parity before each of its 8 scattered rows:
+// What the design does about it. The two-pass B3 that this probe was
+// measured against walked its rows in order and ORed each thread's nibbles
+// into a shared copy of its tiles' words with shared atomics, since one
+// word takes a nibble from 8 rows T/8 apart (B3 is now B1's one pass and
+// relayout.cu `fold_words`). Here each word is built whole by one thread,
+// so a thread needs the quote parity before each of its 8 scattered rows:
 //   pass A  `row_parity`: a warp a row, the quote parity of every row into a
 //           byte array (N/512 bytes) and of each block's rows;
 //   scan    stage1_core.cuh `chunk_carry_scan`: each block's carry-in and the
@@ -42,16 +43,6 @@ constexpr int kMaxBlockRows = 4096;
 long long rows_per_block(int tile) {
   const int tiles = tile < 128 ? 128 / tile : 1;
   return (long long)tiles * tile;
-}
-
-// bit b of a 4-bit nibble -> bit 8b
-__device__ __forceinline__ uint32_t spread4(uint32_t n) {
-  return (n & 1u) | ((n & 2u) << 7) | ((n & 4u) << 14) | ((n & 8u) << 21);
-}
-
-// sigma(j) = [7,3,5,1,6,2,4,0][j], one nibble each
-__device__ __forceinline__ int fold_sigma(int j) {
-  return (0x04261537 >> (4 * j)) & 0xF;
 }
 
 __global__ void __launch_bounds__(kThreads)

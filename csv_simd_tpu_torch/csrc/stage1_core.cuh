@@ -1,6 +1,7 @@
 // The classify-and-carry core shared by every stage-1 kernel (B1 in
-// stage1_v4.cu; B3, B5 and B6 in stage1_pack.cu) and by the stage-1 probes
-// (probe_ablate.cu, probe_ablate2.cu, probe_kbench.cu, probe_vnext.cu).
+// stage1_v4.cu, and through it B3 and B6 with relayout.cu; B5 in
+// stage1_pack.cu) and by the stage-1 probes (probe_ablate.cu,
+// probe_ablate2.cu, probe_kbench.cu, probe_vnext.cu).
 //
 // All of them compute one mask over the input's flat byte stream: a byte is
 // kept iff it is a delimiter or newline outside quotes, where in-quote is the
@@ -12,7 +13,8 @@
 // one of two ways. A step is 256 threads x 16 bytes: loads are one uint4 a
 // thread, neighbours on neighbouring addresses.
 //
-// One pass (B1 and the v4full cut of probe_ablate2.cu): `one_pass` reads
+// One pass (B1, and B3 and B6 as B1 followed by a relayout of its words;
+// the v4full cut of probe_ablate2.cu): `one_pass` reads
 // each chunk of whole steps once, all of a thread's loads issued together,
 // and keeps each step's quote prefix and structural bits in registers. Each
 // warp's step parities make one word of shared memory, so one barrier gives
@@ -26,7 +28,8 @@
 // shared-subexpression SWAR form for an ASCII dialect and __vcmpeq4
 // otherwise (`classify16`).
 //
-// Two passes (the others):
+// Two passes (B5 and the probes' cuts of probe_ablate.cu and
+// probe_kbench.cu):
 //   pass A  `chunk_parity`: each block reduces the quote parity of its chunk;
 //   scan    `chunk_carry_scan`: one block turns the chunk parities into each
 //           chunk's incoming carry (an exclusive XOR scan seeded with the
@@ -63,6 +66,18 @@ struct ByteClasses {
 // reaches them.
 __device__ __forceinline__ uint32_t nibble(uint32_t cmp) {
   return ((cmp & 0x80808080u) * 0x00204081u) >> 28;
+}
+
+// bit b of a 4-bit nibble -> bit 8b (the four shifted copies of the
+// multiply do not overlap, so no carry crosses a bit)
+__device__ __forceinline__ uint32_t spread4(uint32_t n) {
+  return (n * 0x00204081u) & 0x01010101u;
+}
+
+// The fold layout's row order: sigma(j) = [7,3,5,1,6,2,4,0][j], one nibble
+// each (sigma(j) = 7 - bitrev3(j))
+__device__ __forceinline__ int fold_sigma(int j) {
+  return (0x04261537 >> (4 * j)) & 0xF;
 }
 
 __device__ __forceinline__ uint32_t quote16(const uint4 v, const ByteClasses& c) {

@@ -10,9 +10,11 @@ word (s*tile/8 + g, lane) covers byte b of input word
 `unpack_packed_host` and the native extractor.
 
 The functions keep the JAX names so that each counterpart is easy to
-find. On a CUDA tensor B3 launches csrc/stage1_pack.cu and B4 the B1
-kernel (csrc/stage1_v4.cu), whose narrow words are B4's; on a CPU
-tensor each runs its plain version. The JAX flags `interpret`, `vma`
+find. On a CUDA tensor B3 launches the B1 kernel (csrc/stage1_v4.cu)
+and then `fold_words` (csrc/relayout.cu), which permutes B1's
+sequential words into the fold layout (its plain version is
+`_fold_from_seq_plain`), and B4 launches B1 alone, whose narrow words
+are B4's; on a CPU tensor each runs its plain version. The JAX flags `interpret`, `vma`
 and `base_mode` chose between Mosaic constructions; they are accepted
 and change nothing here.
 """
@@ -161,6 +163,27 @@ def stage1_swar_xla(w2d: torch.Tensor, carry_in=0,
                                   dialect)
     packed = _fold_pack(masked.view(rows // tile, tile, lanes), tile)
     return packed.reshape(rows // 8, lanes), parity
+
+
+def _fold_from_seq_plain(seq_words: torch.Tensor, tile: int) -> torch.Tensor:
+    """The plain version of `fold_words` on any device: B1's sequential
+    words of rows x 512 bytes (rows * 16 int32, any shape; bit m of word
+    w covers byte 32w + m) -> B3's fold-layout (rows/8, 128) int32 at
+    `tile` rows. Bit 8b + sigma(j) of word (s*tile/8 + g, lane) is bit
+    4(lane % 8) + b of sequential word (s*tile + j*tile/8 + g)*16 +
+    lane/8."""
+    seq = seq_words.reshape(-1, 16)
+    rows = seq.shape[0]
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=seq.device)
+    # nib[r, lane]: the structural bits of bytes 4*lane .. 4*lane+3 of row r
+    nib = ((seq[:, :, None] >> shifts) & 0xF).reshape(rows, LANES)
+    # bit b of a nibble -> bit 8b (the shifted copies do not overlap)
+    spread = ((nib * 0x00204081) & 0x01010101).view(
+        rows // tile, 8, tile // 8, LANES)
+    out = spread[:, 0] << _SIGMA[0]
+    for j in range(1, 8):
+        out |= spread[:, j] << _SIGMA[j]
+    return out.reshape(rows // 8, LANES)
 
 
 def stage1_fused(w2d: torch.Tensor, carry_in=0,

@@ -17,8 +17,10 @@ The count is what the TPU grid's last write left in its (0, 0) block: the
 structural count of the last `tile` rows only, plus the carry-in for
 nopar and lanescan; current returns B6's total count.
 
-On a CUDA tensor the variants launch csrc/probe_kbench.cu (current
-launches B6), on a CPU tensor their plain version, `_variant_plain`.
+On a CUDA tensor nopar and lanescan launch csrc/probe_kbench.cu, roll
+and tril_input B6's pair of kernels (B1's one pass, then
+csrc/relayout.cu `v1_words` counting the last tile) and current B6
+itself; on a CPU tensor each runs its plain version, `_variant_plain`.
 Every variant is held against its plain version at the gate's sizes and
 on the timed input; kernel times come from CUDA graphs (`ms`) and from
 eager launches (`eager_ms`).

@@ -796,3 +796,105 @@ def test_int8_products_on_tile_edges(cuda_device, m):
     assert after["probe_ws_packmm"] == \
         before["probe_ws_packmm"] + 2 * len(weights)
     assert after["probe_concat_mm"] == before["probe_concat_mm"] + 3
+
+
+# --- the relayouts: B3 and B6 as B1's one pass and a relayout ----------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,tile", [(8, 8), (48, 24), (1024, 64),
+                                       (4096, 512), (8192, 2048),
+                                       (6400, 3200), (16_384, 16_384)])
+def test_fold_words_matches_plain(cuda_device, rows, tile):
+    """`fold_words` alone on full-range sequential words against
+    _fold_from_seq_plain, one launch counted a call."""
+    from csv_simd_tpu_torch.ops.stage1_v3 import _fold_from_seq_plain
+
+    rng = np.random.default_rng(rows + tile)
+    seq = torch.from_numpy(rng.integers(-2**31, 2**31, rows * 16,
+                                        dtype=np.int64).astype(np.int32))
+    seq = seq.to(cuda_device)
+    before = _kernels.launch_counts()["fold_words"]
+    got = _kernels.fold_words(seq, tile)
+    assert _kernels.launch_counts()["fold_words"] == before + 1
+    _same((got,), (_fold_from_seq_plain(seq, tile),))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,count_from", [(32, 0), (32, 100), (1024, 0),
+                                             (8192, 8192 * 4 - 128 * 32),
+                                             (65_536, 1)])
+def test_v1_words_matches_plain(cuda_device, rows, count_from):
+    """`v1_words` alone on full-range sequential words against
+    _v1_from_seq_plain, words and the count from count_from on."""
+    from csv_simd_tpu_torch.ops.stage1_pallas import _v1_from_seq_plain
+
+    rng = np.random.default_rng(rows + count_from)
+    seq = torch.from_numpy(rng.integers(-2**31, 2**31, rows * 4,
+                                        dtype=np.int64).astype(np.int32))
+    seq = seq.to(cuda_device)
+    before = _kernels.launch_counts()["v1_words"]
+    got = _kernels.v1_words(seq, count_from)
+    assert _kernels.launch_counts()["v1_words"] == before + 1
+    _same(got, _v1_from_seq_plain(seq, count_from))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,tile", [(4096, 2048), (6400, 3200),
+                                       (16_384, 8192), (32_768, 32_768)])
+def test_fold_kernel_at_large_tiles(cuda_device, rows, tile):
+    """B3 at tiles 2,048 and 3,200 (the two-pass kernel's largest) and
+    past them (no limit now), three dialects, carries 0, 1 and a device
+    1, against its plain version and golden."""
+    arr = _bytes(rows, rows + 7 * tile)
+    w = torch.from_numpy(arr.view("<i4").reshape(rows, 128).copy())
+    w = w.to(cuda_device)
+    for kw in DIALECTS:
+        d = Dialect(**kw)
+        for carry in (0, 1, torch.ones((), dtype=torch.int32,
+                                       device=cuda_device)):
+            got = stage1_fused(w, carry, d, row_tile=tile)
+            _same(got, stage1_swar_xla(w, int(carry), d, row_tile=tile))
+        mask = unpack_packed_host(got[0].cpu().numpy(), arr.size, tile)
+        np.testing.assert_array_equal(
+            mask, golden.structural_mask(arr, d, carry_in=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [8, 64, 512, 2048])
+def test_fold_quote_across_chunk_and_tile(cuda_device, tile):
+    """One quoted field opened 100 bytes before the first 64 KiB chunk of
+    B1's one pass ends and closed past the 1 MiB fold-tile edge of tile
+    2,048 (and so past many chunk and tile edges of every tile here):
+    B3's words and parity against its plain version and golden, carries
+    0, 1 and a device 1."""
+    rows = 4 * 2048
+    arr = np.frombuffer(b"ab,cd\n" * (rows * 512 // 6 + 1),
+                        np.uint8)[:rows * 512].copy()
+    arr[(1 << 16) - 100] = arr[(1 << 20) + 100] = 0x22
+    w = torch.from_numpy(arr.view("<i4").reshape(rows, 128).copy())
+    w = w.to(cuda_device)
+    for carry in (0, 1, torch.ones((), dtype=torch.int32,
+                                   device=cuda_device)):
+        got = stage1_fused(w, carry, row_tile=tile)
+        _same(got, stage1_swar_xla(w, int(carry), row_tile=tile))
+        mask = unpack_packed_host(got[0].cpu().numpy(), arr.size, tile)
+        np.testing.assert_array_equal(
+            mask, golden.structural_mask(arr, carry_in=int(carry)))
+        assert int(got[1]) == golden.quote_parity_out(arr,
+                                                      carry_in=int(carry))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunks", [1, 3, 257])
+def test_v1_kernel_total_count(cuda_device, chunks):
+    """B6's count is the structural count of the whole input (every
+    word), across chunks of B1's one pass, against golden; its words and
+    parity against the plain version."""
+    arr = _quoted_span(chunks, 11 * chunks)
+    b = torch.from_numpy(arr.reshape(-1, 128).copy()).to(cuda_device)
+    for carry in (0, 1):
+        got = stage1_pallas(b, carry, row_tile=512)
+        _same(got, _stage1_pallas_plain(b, carry, Dialect()))
+        assert int(got[1]) == int(golden.structural_mask(
+            arr, carry_in=carry).sum())
