@@ -33,8 +33,10 @@ Phases, each of which fails the run on any error:
    stage-1 labs: B1's stage cuts (ablate2: every cut, carries 0, 1 and
    a device 1, tiles 8, 64 and 512, v4full against B1's narrow words),
    the v1-layout variants (kbench: words and last-tile count, full
-   against B6) and the direct fold pack (vnext: against its plain
-   version and B3, and at 64 MiB against golden); the wide-store probes
+   against B6), the stage ablation (ablate: every mode, words and side
+   words, at tiles 8 to 8,192, carries 0, 1 and a device 1) and the
+   direct fold pack (vnext: against its plain version and B3 at tiles 8
+   to 8,192, and at 64 MiB against golden); the wide-store probes
    (widestore_probe2: the strided gather and the mmL pack product;
    widestore_probe3: the lane-window sum and the mmLb product, one
    product kernel for both) at 8 to 8,000 rows, on full-range int32 with
@@ -78,7 +80,9 @@ Phases, each of which fails the run on any error:
    probe's wide ceiling; and the labs at 64 MiB and 1 GiB: B1's stage
    cuts beside B1, B3 and B4 (ablate2), the v1-layout variants beside B6
    (kbench, on the same random words as bytes) and the direct fold pack
-   beside B3 (vnext); the wide-store probes at 64 MiB and 1 GiB: the
+   beside B3 (vnext, at tiles 128 and 512: at 128 it is written from B1's
+   one pass, at 512 it is B3's pair); the wide-store probes at 64 MiB and
+   1 GiB: the
    gather and mmL on the (rows, 128) words, the lane sum and mmLb on
    their (rows/8, 1024) view, and the concat product on that view; the
    Mosaic probes' kernels on 64 MiB of their first input. Probe kernels
@@ -96,7 +100,11 @@ Phases, each of which fails the run on any error:
    beside the v4full cut's (`ablate2_v4full`); it must name the Mosaic
    probes' kernels, `ablate2_v4full`, `v1_words` and both int8 products,
    `concat_mm<true, false>` (the concat sum) and `concat_mm<false, true>`
-   (the OR of block products).
+   (the OR of block products). A third, short trace of the stage
+   ablation's chained cuts and the direct fold pack at tiles 128 and 512
+   must name their one-pass kernels and hold no `chunk_parity` and no
+   `row_parity`: they read their input once (only B5 runs the two-pass
+   carry).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -288,7 +296,7 @@ def bounds(timed: dict, hi_ops: int) -> dict:
         "ablate": (w, lambda: ablate._ablate_plain(w, "full", 512, 1)),
         "ablate2": (w, lambda: ablate2.plain(w, "v4full", 512, 1)),
         "kbench": (b, lambda: kbench._variant_plain(b, "roll", 1024, 1)),
-        "vnext": (w, lambda: vnext._vnext_plain(w, 512, 1, True)),
+        "vnext": (w, lambda: vnext._vnext_plain(w, 128, 1, True)),
         "widestore_probe2.s8_st16": (w, lambda: widestore_probe2._gather_plain(
             w)),
         "widestore_probe2.mmL": (w, lambda: widestore_probe2._packmm_plain(
@@ -788,9 +796,11 @@ def _short(name: str) -> str:
 
 def probe_trace(words: torch.Tensor) -> dict:
     """{kernel: (mean device ms a launch, launches)} from a torch.profiler
-    trace of five calls of every stream and ablation mode (tile 512), of
+    trace of five calls of every stream and ablation mode (tiles 128 and
+    512), of
     B1's narrow build, every B1 stage cut, every v1-layout variant (the
-    words as bytes), the direct fold pack and the wide-store gather, lane
+    words as bytes), the direct fold pack (tiles 128 and 512) and the
+    wide-store gather, lane
     sum and both pack products (on the words and their (rows/8, 1024)
     view), the Mosaic probes' kernels (on the words, the words as bytes,
     and for the gather a quarter of those bytes as the table and the words
@@ -825,14 +835,16 @@ def probe_trace(words: torch.Tensor) -> dict:
                 for mode in dma_probe.WRITE_MODES:
                     dma_probe.mk_write(words, mode, 1)
                 dma_probe.mk_read(words, 1)
-                for mode in ablate.MODES:
-                    ablate.mk(words, mode, 512, 1)
+                for tile in (128, 512):
+                    for mode in ablate.MODES:
+                        ablate.mk(words, mode, tile, 1)
                 stage1_fused_v4(words, 1, count_nonascii=False)
                 for cut in _kernels.ABLATE2_CUTS:
                     ablate2.mk(words, cut, 512, 1)
                 for name in ("nopar", "lanescan", "roll"):
                     kbench.make_variant(as_bytes, name, 1024, 1)
-                vnext.make(words, 512, 1, directpack=True)
+                for tile in vnext.TILES:
+                    vnext.make(words, tile, 1, directpack=True)
                 widestore_probe2.s8_st16(words)
                 widestore_probe2.mm_lanes(words, w_l)
                 widestore_probe3.laneload(wide)
@@ -851,6 +863,37 @@ def probe_trace(words: torch.Tensor) -> dict:
         per, _busy = _device_ops(os.path.join(trace_dir,
                                               profiling.TRACE_FILE))
     return {_short(name): (ms / n, n) for name, (ms, n) in per.items()}
+
+
+def carry_trace(words: torch.Tensor) -> dict:
+    """{kernel: (mean device ms a launch, launches)} from a torch.profiler
+    trace of one call of each chained ablation cut and of the direct fold
+    pack, at tiles 128 and 512. Fails unless it names the probe's one pass
+    (`ablate_pass`), the direct pack's (`vnext_pack`) and, at tile 512,
+    B1's one pass and `fold_words`; and if it names `chunk_parity` or
+    `row_parity`."""
+    from csv_simd_tpu_torch.tools import ablate, vnext
+    from csv_simd_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profiling.device_trace(trace_dir):
+            for tile in (128, 512):
+                for mode in ("full", "v3", "v3_mmonly"):
+                    ablate.mk(words, mode, tile, 1)
+                vnext.make(words, tile, 1, directpack=True)
+        per, _busy = _device_ops(os.path.join(trace_dir,
+                                              profiling.TRACE_FILE))
+    ops = {_short(name): (ms / n, n) for name, (ms, n) in per.items()}
+    names = " ".join(ops)
+    for kernel in ("ablate_pass", "vnext_pack", "mask_pack", "fold_words"):
+        if kernel not in names:
+            raise AssertionError(f"the carry trace names no {kernel}: "
+                                 f"{sorted(ops)}")
+    for kernel in ("chunk_parity", "row_parity"):
+        if kernel in names:
+            raise AssertionError(f"the carry trace names {kernel}: "
+                                 f"{sorted(ops)}")
+    return ops
 
 
 def write_big_csv(block: bytes) -> tuple:
@@ -1120,8 +1163,10 @@ def main() -> int:
     gate_pack(gate, device, arrays, golden)
     blk = gate_pack_block(gate, device, block, golden)
     gate_relayouts(gate, device, golden)
-    # the direct fold pack at 64 MiB against B3 and golden
-    gate.record("vnext", vnext.check(blk["words"]))
+    # the direct fold pack at 64 MiB against B3 and golden, at the tiles
+    # of both its routes
+    for tile in vnext.TILES:
+        gate.record("vnext", vnext.check(blk["words"], tile=tile))
     gate_probes(gate, device)
     gate_products(gate, device)
     if not report_probes(widestore_probe2.PROBES + widestore_probe3.PROBES
@@ -1331,9 +1376,11 @@ def main() -> int:
         gate.record("kbench", kbench.check(kbench.as_bytes(w)))
         kb[at], l_kb[at] = driven(kbench.run, kbench.as_bytes(w))
         need(l_kb[at], "probe_kbench", 4, f"kbench.run at {at}")
-        gate.record("vnext", vnext.check_timed(w))
+        for tile in vnext.TILES:
+            gate.record("vnext", vnext.check_timed(w, tile))
         vn[at], l_vn[at] = driven(vnext.run, w)
-        need(l_vn[at], "probe_vnext", 2, f"vnext.run at {at}")
+        need(l_vn[at], "probe_vnext", 2 * len(vnext.TILES),
+             f"vnext.run at {at}")
         # the wide-store probes: the gather and mmL on the (rows, 128)
         # words, the lane sum and mmLb on their (rows/8, 1024) view
         for tool, x, times, launched, kernels in (
@@ -1356,8 +1403,9 @@ def main() -> int:
     ms["ablate2_plain"] = ab2["1 GiB"]["v4full:512"]["plain_ms"]
     ms["kbench"] = kb["1 GiB"]["roll:1024"]["ms"]
     ms["kbench_plain"] = kb["1 GiB"]["roll:1024"]["plain_ms"]
-    ms["vnext"] = vn["1 GiB"]["directpack"]["ms"]
-    ms["vnext_plain"] = vn["1 GiB"]["directpack"]["plain_ms"]
+    # T8's own kernel: the direct pack at tile 128 (at 512 it is B3's pair)
+    ms["vnext"] = vn["1 GiB"]["directpack:128"]["ms"]
+    ms["vnext_plain"] = vn["1 GiB"]["directpack:128"]["plain_ms"]
     for prefix, times in (("widestore_probe2", ws2),
                           ("widestore_probe3", ws3)):
         for name, v in times["1 GiB"].items():
@@ -1485,14 +1533,21 @@ def main() -> int:
         raise AssertionError(f"a warm build launched chunk_parity: {traced}")
     # the probes' kernels in a second trace, at 64 MiB: device time a
     # launch by name, beside phase 6's graph and eager times
-    probe_ops = probe_trace(random_words(BLOCK_BYTES // 512, device, 64))
+    trace_words = random_words(BLOCK_BYTES // 512, device, 64)
+    probe_ops = probe_trace(trace_words)
+    carry_ops = carry_trace(trace_words)
+    del trace_words
     # the two int8 products, one kernel template: T12's sum and the mmL
     # and mmLb OR of block products
     for kernel in ("mm32_pack", "lane_gather", "cmp8", "select8", "shift_add",
                    "usum", "concat_mm<true, false>", "concat_mm<false, true>",
-                   "ablate2_v4full", "v1_words"):
+                   "ablate2_v4full", "v1_words", "vnext_pack"):
         if kernel not in probe_ops:
             raise AssertionError(f"the probe trace names no {kernel}: "
+                                 f"{sorted(probe_ops)}")
+    for kernel in ("chunk_parity", "row_parity"):
+        if any(kernel in name for name in probe_ops):
+            raise AssertionError(f"the probe trace names {kernel}: "
                                  f"{sorted(probe_ops)}")
 
     gb = padded_rows(size) * ROW_BYTES / 1e9
@@ -1590,6 +1645,11 @@ def main() -> int:
     print(f"library calls on {card} (ms; the Mosaic probes' at 64 MiB, the "
           "rest at 1 GiB): " + ", ".join(
               f"{k} {v:.4f}" for k, v in library_ms.items()))
+    print(f"the chained ablation cuts and the direct fold pack at tiles 128 "
+          f"and 512 in a trace at 64 MiB on {card} (device ms a launch; no "
+          "chunk_parity, no row_parity): " + "; ".join(
+              f"{name} {t:.4f} x{n}" for name, (t, n) in
+              sorted(carry_ops.items())))
     one_pass = {k: v for k, v in probe_ops.items()
                 if k.startswith(("mask_pack", "ablate2_v4full", "concat_mm"))}
     print(f"B1's one pass beside the v4full cut's, and the two int8 products, "

@@ -138,7 +138,7 @@ def _library():
         lib.csv_stage1_v4.restype = i
         lib.csv_stage1_v4_prefix_scratch.argtypes = [ll]
         lib.csv_stage1_v4_prefix_scratch.restype = ll
-        lib.csv_fold_words.argtypes = [vp, ll, i, vp, vp]
+        lib.csv_fold_words.argtypes = [vp, ll, i, i, vp, i, vp, vp]
         lib.csv_fold_words.restype = i
         lib.csv_v1_words.argtypes = [vp, ll, ll, vp, vp, vp]
         lib.csv_v1_words.restype = i
@@ -160,10 +160,10 @@ def _library():
         lib.csv_probe_alu.argtypes = [vp, ll, ctypes.POINTER(i), i, i, vp, i,
                                       vp, i, vp]
         lib.csv_probe_alu.restype = i
-        lib.csv_probe_ablate_max_tile.argtypes = []
-        lib.csv_probe_ablate_max_tile.restype = i
-        lib.csv_probe_ablate_chunks.argtypes = [ll, i]
+        lib.csv_probe_ablate_chunks.argtypes = [ll]
         lib.csv_probe_ablate_chunks.restype = ll
+        lib.csv_probe_ablate_relayout.argtypes = [i, i]
+        lib.csv_probe_ablate_relayout.restype = i
         lib.csv_probe_ablate.argtypes = [i, vp, ll, i, vp, i, vp, vp, vp, vp,
                                          vp]
         lib.csv_probe_ablate.restype = i
@@ -174,11 +174,11 @@ def _library():
         lib.csv_probe_ablate2.restype = i
         lib.csv_probe_kbench.argtypes = [i, vp, ll, i, vp, i, vp, vp, vp]
         lib.csv_probe_kbench.restype = i
-        lib.csv_probe_vnext_max_tile.argtypes = []
-        lib.csv_probe_vnext_max_tile.restype = i
-        lib.csv_probe_vnext_chunks.argtypes = [ll, i]
+        lib.csv_probe_vnext_direct.argtypes = [i]
+        lib.csv_probe_vnext_direct.restype = i
+        lib.csv_probe_vnext_chunks.argtypes = [ll]
         lib.csv_probe_vnext_chunks.restype = ll
-        lib.csv_probe_vnext.argtypes = [vp, ll, i, vp, i, vp, vp, vp, vp, vp]
+        lib.csv_probe_vnext.argtypes = [vp, ll, i, vp, i, vp, vp, vp, vp]
         lib.csv_probe_vnext.restype = i
         lib.csv_probe_ws_gather.argtypes = [vp, ll, vp, vp]
         lib.csv_probe_ws_gather.restype = i
@@ -330,14 +330,22 @@ def _check_fold_tile(rows: int, tile: int, what: str) -> None:
                          f"of 8 that divides the {rows} rows")
 
 
-def _launch_fold_words(seq: torch.Tensor, rows: int, tile: int,
-                       what: str) -> torch.Tensor:
+# bit orders of csrc/relayout.cu `fold_words`: B3's fold (sigma(j)) and the
+# ablation probe's (bitrev3(j), each byte of B3's bit-reversed)
+FOLD_ORDER_B3, FOLD_ORDER_BITREV = 0, 1
+
+
+def _launch_fold_words(seq: torch.Tensor, rows: int, tile: int, what: str,
+                       order: int = FOLD_ORDER_B3,
+                       add: tuple = (None, 0)) -> torch.Tensor:
     """csrc/relayout.cu `fold_words` on B1's words of rows x 512 bytes ->
-    (rows/8, 128) int32 fold-layout words. Counts nothing."""
+    (rows/8, 128) int32 fold-layout words in `order`, each adding the bit
+    `add` gives as (device pointer or None, int), as `_carry` returns it.
+    Counts nothing."""
     out = torch.empty((rows // 8, 128), dtype=torch.int32, device=seq.device)
-    _raise_on(_library().csv_fold_words(seq.data_ptr(), rows, tile,
-                                        out.data_ptr(), _stream(seq.device)),
-              what)
+    _raise_on(_library().csv_fold_words(seq.data_ptr(), rows, tile, order,
+                                        add[0], add[1], out.data_ptr(),
+                                        _stream(seq.device)), what)
     return out
 
 
@@ -605,32 +613,39 @@ def probe_alu(words: torch.Tensor, n_ops: int, mix_index: int, consts,
 def probe_ablate(words: torch.Tensor, mode: str, tile: int, carry_in):
     """csrc/probe_ablate.cu on CUDA (rows, 128) int32 -> (out (rows/8,
     128) int32, side (rows/tile,) int32), the stage cut `mode` at `tile`
-    rows (a multiple of 8 dividing rows); "v3i8" is "v3"."""
+    rows (a multiple of 8 dividing rows); "v3i8" is "v3". The folds (v3,
+    v3_foldonly) at a tile that does not divide 128 rows are the probe's
+    pass writing B1's words, then `fold_words` in the probe's bit order."""
     rows = _check_rows128(words, "probe_ablate", 8)
     mode = "v3" if mode == "v3i8" else mode
     if mode not in ABLATE_MODES:
         raise ValueError(f"probe_ablate: mode must be one of {ABLATE_MODES} "
                          f"or 'v3i8', got {mode!r}")
-    lib = _library()
-    max_tile = lib.csv_probe_ablate_max_tile()
-    if tile <= 0 or tile % 8 or rows % tile or tile > max_tile:
+    if tile <= 0 or tile % 8 or rows % tile:
         raise ValueError(f"probe_ablate: tile {tile} must be a positive "
-                         f"multiple of 8 that divides the {rows} rows, at "
-                         f"most {max_tile}")
+                         f"multiple of 8 that divides the {rows} rows")
+    lib = _library()
+    index = ABLATE_MODES.index(mode)
     dev = words.device
     with torch.cuda.device(dev):
         carry_ptr, carry_int, _keep = _carry(carry_in, dev)
-        n_chunks = lib.csv_probe_ablate_chunks(rows, tile)
+        relayout = lib.csv_probe_ablate_relayout(index, tile)
         out = torch.empty((rows // 8, 128), dtype=torch.int32, device=dev)
         side = torch.empty(rows // tile, dtype=torch.int32, device=dev)
-        scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
+        scratch = torch.empty(lib.csv_probe_ablate_chunks(rows) + 1,
+                              dtype=torch.int32, device=dev)
         scalars = torch.empty(2, dtype=torch.int32, device=dev)
+        first = torch.empty_like(out) if relayout else out
         err = lib.csv_probe_ablate(
-            ABLATE_MODES.index(mode), words.data_ptr(), rows, tile,
-            carry_ptr, carry_int, out.data_ptr(), side.data_ptr(),
-            scratch.data_ptr(), scalars.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "probe_ablate")
+            index, words.data_ptr(), rows, tile, carry_ptr, carry_int,
+            first.data_ptr(), side.data_ptr(), scratch.data_ptr(),
+            scalars.data_ptr(), _stream(dev))
+        _raise_on(err, "probe_ablate")
+        if relayout:
+            add = (carry_ptr, carry_int) if mode == "v3_foldonly" else (None,
+                                                                        0)
+            out = _launch_fold_words(first, rows, tile, "probe_ablate",
+                                     FOLD_ORDER_BITREV, add)
     LAUNCHES["probe_ablate"] += 1
     return out, side
 
@@ -713,29 +728,33 @@ def probe_kbench(b2d: torch.Tensor, variant: str, tile: int, carry_in):
 
 
 def probe_vnext(words: torch.Tensor, tile: int, carry_in):
-    """csrc/probe_vnext.cu on CUDA (rows, 128) int32 -> (B3's fold-layout
-    words (rows/8, 128) int32, parity out 0-d int32) by the atomic-free
-    direct pack, at tile rows (a multiple of 8 dividing rows)."""
+    """The direct fold pack on CUDA (rows, 128) int32 -> (B3's fold-layout
+    words (rows/8, 128) int32, parity out 0-d int32) at tile rows (a
+    multiple of 8 dividing rows): at a tile that divides 128 rows,
+    csrc/probe_vnext.cu's one pass with the fold written from its emit;
+    at any other, B3's pair (B1's one pass, then `fold_words`)."""
     rows = _check_rows128(words, "probe_vnext", 8)
-    lib = _library()
-    max_tile = lib.csv_probe_vnext_max_tile()
-    if tile <= 0 or tile % 8 or rows % tile or tile > max_tile:
+    if tile <= 0 or tile % 8 or rows % tile:
         raise ValueError(f"probe_vnext: tile {tile} must be a positive "
-                         f"multiple of 8 that divides the {rows} rows, at "
-                         f"most {max_tile}")
+                         f"multiple of 8 that divides the {rows} rows")
+    lib = _library()
     dev = words.device
     with torch.cuda.device(dev):
-        carry_ptr, carry_int, _keep = _carry(carry_in, dev)
-        n_chunks = lib.csv_probe_vnext_chunks(rows, tile)
-        out = torch.empty((rows // 8, 128), dtype=torch.int32, device=dev)
-        rowpar = torch.empty(rows, dtype=torch.uint8, device=dev)
-        scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=dev)
         scalars = torch.empty(2, dtype=torch.int32, device=dev)
-        err = lib.csv_probe_vnext(
-            words.data_ptr(), rows, tile, carry_ptr, carry_int,
-            out.data_ptr(), rowpar.data_ptr(), scratch.data_ptr(),
-            scalars.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "probe_vnext")
+        if lib.csv_probe_vnext_direct(tile):
+            carry_ptr, carry_int, _keep = _carry(carry_in, dev)
+            out = torch.empty((rows // 8, 128), dtype=torch.int32,
+                              device=dev)
+            scratch = torch.empty(lib.csv_probe_vnext_chunks(rows) + 1,
+                                  dtype=torch.int32, device=dev)
+            _raise_on(lib.csv_probe_vnext(
+                words.data_ptr(), rows, tile, carry_ptr, carry_int,
+                out.data_ptr(), scratch.data_ptr(), scalars.data_ptr(),
+                _stream(dev)), "probe_vnext")
+        else:
+            seq = _one_pass(words, carry_in, DEFAULT_DIALECT, "probe_vnext",
+                            scalars)
+            out = _launch_fold_words(seq, rows, tile, "probe_vnext")
     LAUNCHES["probe_vnext"] += 1
     return out, scalars[0]
 

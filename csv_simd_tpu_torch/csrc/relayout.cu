@@ -14,10 +14,15 @@
 //   (s*T + j*q + g)*16 + L/8. A thread builds the 8 words of one output row
 //   at lanes 8c..8c+7: for each j one 4-byte load (16 threads read a row's
 //   64 bytes, a warp two neighbouring rows' 128), whose 8 nibbles go to
-//   bits sigma(j) of the 8 words (`spread4`), then two 16-byte stores. A
-//   thread owns its words whole: no atomics, no shared memory, and so any
-//   tile that is a multiple of 8 (the two-pass kernel held a block's words
-//   in shared memory, which capped the tile at 3,200 rows).
+//   bits sigma(j) of the 8 words (stage1_core.cuh `transpose_nibbles`,
+//   which the staged emit of probe_vnext.cu and probe_ablate.cu calls too),
+//   then two 16-byte stores. A thread owns its words whole: no atomics, no
+//   shared memory, and so any tile that is a multiple of 8 (the two-pass
+//   kernel held a block's words in shared memory, which capped the tile at
+//   3,200 rows). With B1 it is also the direct fold pack of the vnext probe
+//   at tiles that do not divide 128 rows, and in the ablation probe's bit
+//   order (bitrev3(j), adding the carry-in for v3_foldonly) its v3 and
+//   v3_foldonly folds at such tiles, after that probe's own one pass.
 // v1_words, B6's v1 layout. With B1 it replaces
 //   csv_simd_tpu/ops/stage1_pallas.py `_stage1_kernel` (line 73), launched
 //   by `stage1_pallas` (line 145), and tools/kbench.py's `roll` and
@@ -48,8 +53,13 @@ constexpr int kLanes = 128;    // int32 words a row of the output
 constexpr int kRowWords = 16;  // B1's words a 512-byte row
 
 // One thread a (fold output row o, lane group c); n_threads = out_rows * 16.
+// kOrder: B3's order or the ablation probe's (stage1_core.cuh
+// `transpose_nibbles`); with kAdd, every word adds the carry-in bit
+// (*add_ptr when add_ptr is not null, else add).
+template <int kOrder, bool kAdd>
 __global__ void __launch_bounds__(kThreads)
 fold_words(const uint32_t* __restrict__ seq, long long n_threads, unsigned q,
+           const int* __restrict__ add_ptr, int add,
            uint32_t* __restrict__ out) {
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= n_threads) return;
@@ -61,17 +71,23 @@ fold_words(const uint32_t* __restrict__ seq, long long n_threads, unsigned q,
 #pragma unroll
   for (int j = 0; j < 8; ++j) w[j] = src[(long long)j * q * kRowWords];
   uint32_t acc[8];
+  transpose_nibbles<kOrder>(w, acc);
+  if constexpr (kAdd) {
+    const uint32_t a = (uint32_t)(add_ptr ? *add_ptr : add) & 1u;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    uint32_t a = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      a |= spread4((w[j] >> (4 * i)) & 0xFu) << fold_sigma(j);
-    acc[i] = a;
+    for (int i = 0; i < 8; ++i) acc[i] += a;
   }
-  uint4* dst = reinterpret_cast<uint4*>(out + (long long)o * kLanes + 8 * c);
-  dst[0] = make_uint4(acc[0], acc[1], acc[2], acc[3]);
-  dst[1] = make_uint4(acc[4], acc[5], acc[6], acc[7]);
+  store_words8(out, o, (int)c, acc);
+}
+
+template <int kOrder, bool kAdd>
+cudaError_t launch_fold_words(const uint32_t* seq, long long n_threads,
+                              unsigned q, const int* add_ptr, int add,
+                              uint32_t* out, cudaStream_t st) {
+  fold_words<kOrder, kAdd>
+      <<<(unsigned)((n_threads + kThreads - 1) / kThreads), kThreads, 0,
+         st>>>(seq, n_threads, q, add_ptr, add, out);
+  return cudaGetLastError();
 }
 
 // A 32 x 32 bit transpose across the warp: lane i gets the word whose bit
@@ -129,19 +145,32 @@ extern "C" {
 
 // seq: B1's words of rows x 512 bytes (rows * 16 int32, 16-byte aligned).
 // out: (rows / 8) x 128 words. tile: the fold tile in rows, a positive
-// multiple of 8 that divides rows. Returns cudaGetLastError() after the
-// launch.
-int csv_fold_words(const void* seq, long long rows, int tile, void* out,
-                   void* stream) {
+// multiple of 8 that divides rows. order: 0 B3's fold (sigma(j)), 1 the
+// ablation probe's (bitrev3(j)). add_ptr / add: the bit that every word
+// adds (bit 0 of the device int at add_ptr when not null, else add & 1; B3
+// adds none). Returns cudaGetLastError() after the launch.
+int csv_fold_words(const void* seq, long long rows, int tile, int order,
+                   const void* add_ptr, int add, void* out, void* stream) {
   if (rows <= 0 || tile <= 0 || tile % 8 != 0 || rows % tile != 0 ||
-      rows / 8 > (1LL << 31) - 1)
+      rows / 8 > (1LL << 31) - 1 || (order != kOrderFold &&
+                                     order != kOrderBitrev))
     return (int)cudaErrorInvalidValue;
   const long long n_threads = rows / 8 * 16;
-  fold_words<<<(unsigned)((n_threads + kThreads - 1) / kThreads), kThreads,
-               0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(seq), n_threads, (unsigned)(tile / 8),
-      static_cast<uint32_t*>(out));
-  return (int)cudaGetLastError();
+  const uint32_t* s = static_cast<const uint32_t*>(seq);
+  const int* ap = static_cast<const int*>(add_ptr);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  const unsigned q = (unsigned)(tile / 8);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool adds = ap != nullptr || (add & 1);
+  if (order == kOrderFold)
+    return (int)(adds ? launch_fold_words<kOrderFold, true>(
+                            s, n_threads, q, ap, add, o, st)
+                      : launch_fold_words<kOrderFold, false>(
+                            s, n_threads, q, ap, add, o, st));
+  return (int)(adds ? launch_fold_words<kOrderBitrev, true>(
+                          s, n_threads, q, ap, add, o, st)
+                    : launch_fold_words<kOrderBitrev, false>(
+                          s, n_threads, q, ap, add, o, st));
 }
 
 // seq: B1's words of rows x 128 bytes (rows * 4 int32, 16-byte aligned),

@@ -14,7 +14,8 @@
 // thread, neighbours on neighbouring addresses.
 //
 // One pass (B1, and B3 and B6 as B1 followed by a relayout of its words;
-// the v4full cut of probe_ablate2.cu): `one_pass` reads
+// the v4full cut of probe_ablate2.cu, the chained cuts of probe_ablate.cu
+// and the direct fold pack of probe_vnext.cu): `one_pass` reads
 // each chunk of whole steps once, all of a thread's loads issued together,
 // and keeps each step's quote prefix and structural bits in registers. Each
 // warp's step parities make one word of shared memory, so one barrier gives
@@ -26,19 +27,25 @@
 // a round after its own parity, from a window of its predecessors' words
 // read while the next chunk is classified. The classify is the
 // shared-subexpression SWAR form for an ASCII dialect and __vcmpeq4
-// otherwise (`classify16`).
+// otherwise (`classify16`). `chunk_loop` takes the same chunks with the same
+// grid and loads and no carry (the unchained cuts of probe_ablate.cu).
 //
-// Two passes (B5 and the probes' cuts of probe_ablate.cu and
-// probe_kbench.cu):
+// A layout whose words depend only on rows of one 64 KiB chunk is written
+// from the emit of either loop by the staged emit (`stage_mask`,
+// `staged_words`): the chunk's masks go to shared memory as B1's words,
+// and after one barrier each thread builds whole output words and stores
+// them once. A layout whose words span chunks is B1's words followed by a
+// relayout (relayout.cu). Both build their words with `transpose_nibbles`.
+//
+// Two passes (B5 only: stage1_pack.cu calls `launch_carry`):
 //   pass A  `chunk_parity`: each block reduces the quote parity of its chunk;
 //   scan    `chunk_carry_scan`: one block turns the chunk parities into each
 //           chunk's incoming carry (an exclusive XOR scan seeded with the
 //           carry-in, read from device memory when the caller passes a
 //           pointer) and writes the parity out;
-//   pass B  each layout's kernel walks its chunk again in 4 KiB steps, and
+//   pass B  the layout's kernel walks its chunk again in 4 KiB steps, and
 //           `step_mask` gives each thread the 16-bit mask of its 16 bytes
-//           (`step_carry`, its carry step, also serves the stage-cut probe
-//           in probe_ablate.cu); the classify is __vcmpeq4.
+//           (`step_carry` is its carry step); the classify is __vcmpeq4.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -274,6 +281,20 @@ __device__ __forceinline__ void swar4(uint32_t x, const ByteClasses& c,
   for (int i = 1; i < kMaxStructural; ++i) ts &= (xl ^ c.structural[i]) + kLow7;
   q = nibble(~(((xl ^ c.quote) + kLow7) | xh));
   s = nibble(~(ts | xh));
+}
+
+// The same classify as 0x80 flags: qf and sf have bit 8b + 7 set iff byte b
+// of x is the quote or a structural byte. (swar4 does not call it: written
+// through it, B1's kernel compiled to other instructions on sm_90a.)
+__device__ __forceinline__ void swar_flags4(uint32_t x, const ByteClasses& c,
+                                            uint32_t& qf, uint32_t& sf) {
+  constexpr uint32_t kLow7 = 0x7f7f7f7fu;
+  const uint32_t xl = x & kLow7, xh = x & 0x80808080u;
+  uint32_t ts = (xl ^ c.structural[0]) + kLow7;
+#pragma unroll
+  for (int i = 1; i < kMaxStructural; ++i) ts &= (xl ^ c.structural[i]) + kLow7;
+  qf = ~(((xl ^ c.quote) + kLow7) | xh) & 0x80808080u;
+  sf = ~(ts | xh) & 0x80808080u;
 }
 
 // 16-bit quote and structural masks of 16 bytes: SWAR when kAscii (the
@@ -658,6 +679,110 @@ __device__ __forceinline__ void one_pass(const uint4* __restrict__ in,
     cur = nxt;
     nxt = after;
   }
+}
+
+// ---- Chunks without a carry ----
+
+// The unchained cuts' loop: one_pass's chunks, grid and loads without its
+// status words. The block takes chunks of kNSteps steps from *ticket (zero
+// before the launch) until none is left, issues all of a thread's loads of
+// a chunk together (v[k] = its 16 bytes of step k, 0 past n_bytes) and calls
+// fn(chunk, v), every thread of the block; a __syncthreads lies between two
+// calls. s_next is the block's two ticket words in shared memory.
+template <int kNSteps, class Fn>
+__device__ __forceinline__ void chunk_loop(const uint4* __restrict__ in,
+                                           long long n_bytes, int n_chunks,
+                                           int* ticket, int (&s_next)[2],
+                                           Fn fn) {
+  if (threadIdx.x == 0) s_next[0] = atomicAdd(ticket, 1);
+  __syncthreads();
+  int cur = s_next[0], b = 0;
+  uint4 v[kNSteps];
+  while (cur < n_chunks) {
+    load_chunk(v, in, n_bytes, cur);
+    b ^= 1;
+    if (threadIdx.x == 0) s_next[b] = atomicAdd(ticket, 1);
+    fn(cur, v);
+    __syncthreads();
+    cur = s_next[b];
+  }
+}
+
+// ---- Bit permutations of B1's words ----
+
+// The bit orders of the nibble transpose: B3's fold, sigma(j); the
+// ablation probe's fold, bitrev3(j) = 7 - sigma(j) (each byte of B3's word
+// bit-reversed); and row order, j (the probe's 8-row sums)
+enum NibbleOrder { kOrderFold = 0, kOrderBitrev = 1, kOrderRow = 2 };
+
+template <int kOrder>
+__device__ __forceinline__ int order_bit(int j) {
+  if constexpr (kOrder == kOrderFold) return fold_sigma(j);
+  else if constexpr (kOrder == kOrderBitrev) return 7 - fold_sigma(j);
+  else return j;
+}
+
+// One thread's 8 x 8 nibble transpose: w[j] is B1's word of lanes 8c..8c+7
+// of row j of 8 rows (bit 4i + b: byte b of lane 8c + i), acc[i] the output
+// word of lane 8c + i, whose bit 8b + order_bit(j) is bit 4i + b of w[j].
+template <int kOrder>
+__device__ __forceinline__ void transpose_nibbles(const uint32_t (&w)[8],
+                                                  uint32_t (&acc)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint32_t a = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      a |= spread4((w[j] >> (4 * i)) & 0xFu) << order_bit<kOrder>(j);
+    acc[i] = a;
+  }
+}
+
+// The ablation probe's 8-row wrapping sum, sum over k < 8 of
+// (int32)flags[k] >> (7 - k) for 0x80-flag words, from their row-order
+// transpose a (bit 8b + k: byte b's flag of row k). Bytes 0-2 shift onto
+// bits of their own with no carry; byte 3's flag, sign-extended, adds
+// -2^(24 + k), so the sum is a with its top byte negated.
+__device__ __forceinline__ uint32_t sum8_word(uint32_t a) {
+  return (a & 0x00FFFFFFu) | ((0u - (a >> 24)) << 24);
+}
+
+// ---- The staged emit ----
+
+// words of a 64 KiB chunk's stage: its 16 steps' masks, 8 KiB
+constexpr int kStageWords = 16 * kThreads / 2;
+
+// The thread's 16-bit mask of step k into the stage, which so holds the
+// chunk as B1's words: row r (of 512 bytes), lanes 8c..8c+7 is word 16r + c.
+__device__ __forceinline__ void stage_mask(uint32_t* stage, int k,
+                                           uint32_t m) {
+  reinterpret_cast<uint16_t*>(stage)[k * kThreads + threadIdx.x] =
+      (uint16_t)m;
+}
+
+// After stage_mask of all 16 steps and a __syncthreads: the 8 words of
+// lanes 8c..8c+7 (c = threadIdx.x % 16) of the chunk's output row u =
+// threadIdx.x / 16 (of its 16), in order kOrder. Output row u of a fold
+// tile of 8q rows (q divides 16) takes as its row j the chunk's row
+// (u / q) * 8q + j * q + u % q; q = 1 gives rows 8u .. 8u + 7.
+template <int kOrder>
+__device__ __forceinline__ void staged_words(const uint32_t* stage, int q,
+                                             uint32_t (&acc)[8]) {
+  const int u = threadIdx.x >> 4, c = threadIdx.x & 15;
+  const int r0 = (u / q) * 8 * q + u % q;
+  uint32_t w[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) w[j] = stage[(r0 + j * q) * 16 + c];
+  transpose_nibbles<kOrder>(w, acc);
+}
+
+// acc from staged_words (or a relayout's thread) as output row o of
+// (rows, 128) words: two 16-byte stores at lanes 8c..8c+7
+__device__ __forceinline__ void store_words8(uint32_t* out, long long o,
+                                             int c, const uint32_t (&acc)[8]) {
+  uint4* dst = reinterpret_cast<uint4*>(out + o * 128 + 8 * c);
+  dst[0] = make_uint4(acc[0], acc[1], acc[2], acc[3]);
+  dst[1] = make_uint4(acc[4], acc[5], acc[6], acc[7]);
 }
 
 }  // namespace

@@ -165,13 +165,15 @@ def stage1_swar_xla(w2d: torch.Tensor, carry_in=0,
     return packed.reshape(rows // 8, lanes), parity
 
 
-def _fold_from_seq_plain(seq_words: torch.Tensor, tile: int) -> torch.Tensor:
+def _fold_from_seq_plain(seq_words: torch.Tensor, tile: int,
+                         order=_SIGMA) -> torch.Tensor:
     """The plain version of `fold_words` on any device: B1's sequential
     words of rows x 512 bytes (rows * 16 int32, any shape; bit m of word
     w covers byte 32w + m) -> B3's fold-layout (rows/8, 128) int32 at
     `tile` rows. Bit 8b + sigma(j) of word (s*tile/8 + g, lane) is bit
     4(lane % 8) + b of sequential word (s*tile + j*tile/8 + g)*16 +
-    lane/8."""
+    lane/8. `order` gives the bit of row segment j in place of sigma(j)
+    (csrc/stage1_core.cuh `transpose_nibbles`)."""
     seq = seq_words.reshape(-1, 16)
     rows = seq.shape[0]
     shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=seq.device)
@@ -180,9 +182,9 @@ def _fold_from_seq_plain(seq_words: torch.Tensor, tile: int) -> torch.Tensor:
     # bit b of a nibble -> bit 8b (the shifted copies do not overlap)
     spread = ((nib * 0x00204081) & 0x01010101).view(
         rows // tile, 8, tile // 8, LANES)
-    out = spread[:, 0] << _SIGMA[0]
+    out = spread[:, 0] << order[0]
     for j in range(1, 8):
-        out |= spread[:, j] << _SIGMA[j]
+        out |= spread[:, j] << order[j]
     return out.reshape(rows // 8, LANES)
 
 

@@ -17,8 +17,13 @@ plain version, `_ablate_plain`. Every mode is held against the plain
 version at the gate's sizes and on the timed input; kernel times come
 from CUDA graphs (`ms`) and from eager launches (`eager_ms`).
 
-Its pass is B3's layout, not B1's: a block owns whole tiles (at least
-64 KiB) with its out words in shared memory, written once at the end.
+Every mode reads its input once in B1's 64 KiB chunks (the chained ones
+on B1's one pass, with its look-back carry) and stores each word once,
+with no shared-memory atomics and at any tile. full's and noscan's 8-row
+sums are a bit transpose of one 4 KiB step's 8 rows with the top byte
+negated (`_sum8_from_seq_plain`), and the v3 folds B3's fold in the bit
+order bitrev3(j) (`_v3_from_seq_plain`): both from B1's words of the
+flags they pack (`_seq_plain`), which is how the kernel builds them.
 
     python -m csv_simd_tpu_torch.tools.ablate [mode:tile ...]
         (default: every mode at tile 512, on 64 MiB and 1 GiB of random
@@ -32,8 +37,11 @@ import sys
 import torch
 
 from .._kernels import check_rows128
-from ..ops.stage1_v3 import _as_carry
+from ..config import DEFAULT_DIALECT
+from ..ops.stage1_v3 import _as_carry, _fold_from_seq_plain
+from ..ops.stage1_v4 import _stage1_v4_plain
 from ..ops.swar import (
+    shift_right_logical,
     swar_broadcast_flag,
     swar_eq,
     swar_prefix_xor_bytes,
@@ -58,6 +66,9 @@ SIZES = (64 << 20, 1 << 30)
 MODES = ("dma_only", "classify_only", "inword", "noscan", "full", "v3",
          "v3i8", "v3_foldonly", "v3_mmonly")
 CHAINED = ("full", "v3", "v3i8", "v3_mmonly")
+# the modes whose words are a bit permutation of B1's words of their flags
+PERMUTED = ("noscan", "full", "v3", "v3i8", "v3_foldonly")
+_BITREV3 = (0, 4, 2, 6, 1, 5, 3, 7)
 
 
 def _fold_pack(flags: torch.Tensor, tile: int) -> torch.Tensor:
@@ -118,6 +129,50 @@ def _ablate_plain(words: torch.Tensor, mode: str, tile: int, carry_in):
     return out, side
 
 
+def _seq_from_flags(flags: torch.Tensor) -> torch.Tensor:
+    """(rows, 128) 0x80-flag words -> B1's sequential words (rows * 16
+    int32): bit 4(L % 8) + b of word 16r + L/8 is byte b's flag of word
+    (r, L)."""
+    # the multiply lifts bits 7/15/23/31 to 28..31 with no carries
+    nib = shift_right_logical(flags * 0x204081, 28).view(-1, 16, 8)
+    seq = nib[:, :, 0].clone()
+    for i in range(1, 8):
+        seq |= nib[:, :, i] << (4 * i)
+    return seq.reshape(-1)
+
+
+def _seq_plain(words: torch.Tensor, mode: str, carry_in) -> torch.Tensor:
+    """B1's words (rows * 16 int32) of the flags that a mode of PERMUTED
+    packs: the structural mask for the chained ones (B1's own words), sf &
+    ~p_in for noscan and v3_foldonly."""
+    if mode in CHAINED:
+        c = _as_carry(carry_in, words.device)
+        return _stage1_v4_plain(words.reshape(-1), c, DEFAULT_DIALECT,
+                                False)[0]
+    qf = swar_eq(words, 0x22)
+    sf = swar_eq(words, 0x2C) | swar_eq(words, 0x0A) | swar_eq(words, 0x0D)
+    return _seq_from_flags(sf & ~swar_prefix_xor_bytes(qf))
+
+
+def _sum8_from_seq_plain(seq_words: torch.Tensor) -> torch.Tensor:
+    """full's and noscan's 8-row wrapping sums of shifted flags, sum over
+    k < 8 of flags[8g + k] >> (7 - k), from B1's words of the flags (rows
+    x 512 bytes) -> (rows/8, 128) int32: the row-order transpose of each
+    4 KiB step (bit 8b + k of word (g, L): byte b's flag of row 8g + k)
+    with its top byte negated. Bytes 0-2 shift onto bits of their own;
+    byte 3's flag, sign-extended, adds -2^(24 + k)
+    (csrc/stage1_core.cuh `sum8_word`)."""
+    a = _fold_from_seq_plain(seq_words, 8, order=tuple(range(8)))
+    top = -shift_right_logical(a, 24) & 0xFF
+    return (a & 0x00FFFFFF) | (top << 24)
+
+
+def _v3_from_seq_plain(seq_words: torch.Tensor, tile: int) -> torch.Tensor:
+    """The v3 folds from B1's words of their flags: B3's fold at `tile`
+    with row segment j at bit 8b + bitrev3(j)."""
+    return _fold_from_seq_plain(seq_words, tile, order=_BITREV3)
+
+
 def mk(words: torch.Tensor, mode: str, tile: int = 512, carry_in=0):
     """(rows, 128) int32, tile a multiple of 8 dividing rows -> (out
     (rows/8, 128) int32, side (rows/tile,) int32) of stage cut `mode`."""
@@ -151,11 +206,15 @@ def check(words: torch.Tensor, specs=None, carry=1) -> dict:
 
 def gate(device) -> dict:
     """Every mode against the plain version on the card, words and side
-    words, on random and CSV-ish input at tiles 8, 64 and 512 and carries
+    words, on random and CSV-ish input at tiles 8 to 8,192 (the folds'
+    staged emit at tiles dividing 128, their relayout at 24, 200 and 512
+    up; a partial last 64 KiB chunk; tiles that span chunks) and carries
     0, 1 and a device 1."""
     dev_one = torch.ones((), dtype=torch.int32, device=device)
     results = []
-    for rows, tile in ((512, 8), (1024, 64), (2048, 512), (24_576, 512)):
+    for rows, tile in ((512, 8), (1000, 8), (1024, 64), (264, 24),
+                       (1152, 128), (1000, 200), (2048, 512), (24_576, 512),
+                       (4096, 2048), (8192, 4096), (8192, 8192)):
         for w in (random_words(rows, device, rows + tile),
                   csv_words(rows, device, rows + tile)):
             for carry in (0, 1, dev_one):

@@ -1,5 +1,5 @@
 """B3's candidate constructions on the card (tools/vnext.py): the
-atomic-free direct fold pack against B3.
+direct fold pack against B3.
 
 `make(words, tile, carry, i8acc, directpack)` runs one variant over
 (rows, 128) int32 -> (packed (rows/8, 128) int32, parity out 0-d int32),
@@ -10,9 +10,14 @@ words and parity out:
 - base (i8acc=False, directpack=False) and i8acc: B3 itself
   (`stage1_fused`); int8 accumulation was a TPU matmul type and computes
   the same function here;
-- directpack and both: csrc/probe_vnext.cu, which builds each word whole
-  from its 8 rows tile/8 apart (one shift-OR at bit sigma(j) = 7 -
-  bitrev3(j), as the TPU tool's `direct_pack`) with no shared atomics.
+- directpack and both: each word built whole from its 8 rows tile/8
+  apart (one shift-OR at bit sigma(j) = 7 - bitrev3(j), as the TPU
+  tool's `direct_pack`). At a tile that divides 128 rows the 8 rows lie
+  in one 64 KiB chunk of B1's one pass, and csrc/probe_vnext.cu writes
+  the words from that pass's emit (one launch, the input read once, no
+  atomics); at any other tile it is B3's pair, B1's one pass and
+  `fold_words`. Timed at tiles 128 and 512, the pair at tile 128 is the
+  direct emit against B1 plus the relayout's N/8 round trip.
 
 On a CPU tensor every variant runs its plain version, `_vnext_plain`,
 which packs with the TPU tool's own construction (`_direct_pack` or the
@@ -20,10 +25,10 @@ three-step `_fold_pack`). `check` holds the direct pack against B3 and,
 unpacked, against golden, on words from the caller or a CSV file.
 
     python -m csv_simd_tpu_torch.tools.vnext [bench|check [FILE.csv]]
-        bench (default): the gate, then every variant at tile 512 on
-        64 MiB and 1 GiB of random int32, each checked first; check: the
-        direct pack against B3 and golden on FILE.csv (default: a 2 MB
-        synthetic wide table, as the TPU tool's check)
+        bench (default): the gate, then every variant at tiles 128 and
+        512 on 64 MiB and 1 GiB of random int32, each checked first;
+        check: the direct pack against B3 and golden on FILE.csv
+        (default: a 2 MB synthetic wide table, as the TPU tool's check)
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from ._common import (
 
 L = 128
 SIZES = (64 << 20, 1 << 30)
+TILES = (128, 512)
 _BITREV3 = (0, 4, 2, 6, 1, 5, 3, 7)
 VARIANTS = {"base": (False, False), "directpack": (False, True),
             "i8acc": (True, False), "both": (True, True)}
@@ -185,12 +191,14 @@ def _wide_table(n_bytes: int, n_fields: int = 16, seed: int = 7) -> bytes:
 
 
 def gate(device) -> dict:
-    """`_pairs` on the card on random and CSV-ish input at tiles 8, 64,
-    512 and 2048 and carries 0, 1 and a device 1."""
+    """`_pairs` on the card on random and CSV-ish input at tiles 8 to
+    128 (the direct emit; a partial last chunk among them) and 512, 2,048
+    and 8,192 (B1 and `fold_words`), carries 0, 1 and a device 1."""
     dev_one = torch.ones((), dtype=torch.int32, device=device)
     results = []
-    for rows, tile in ((64, 8), (1000, 8), (1024, 64), (1536, 512),
-                       (24_576, 512), (8192, 2048)):
+    for rows, tile in ((64, 8), (1000, 8), (384, 16), (640, 32),
+                       (1024, 64), (1152, 128), (24_576, 128), (1536, 512),
+                       (24_576, 512), (8192, 2048), (8192, 8192)):
         for w in (random_words(rows, device, rows + tile),
                   csv_words(rows, device, rows + tile)):
             for carry in (0, 1, dev_one):
@@ -199,20 +207,21 @@ def gate(device) -> dict:
     return merge(*results)
 
 
-def run(words: torch.Tensor, tile: int = 512, reps: int = 20,
+def run(words: torch.Tensor, tiles=TILES, reps: int = 20,
         plain_reps: int = 2) -> dict:
-    """{variant: {ms, eager_ms, gbps (GB/s of input, from ms), plain_ms}},
-    the kernels timed in turns; plain_reps=0 skips the plain versions'
-    times."""
-    ms = kernel_ms({name: (lambda i8=i8, dp=dp: make(words, tile, 1, i8, dp))
-                    for name, (i8, dp) in VARIANTS.items()}, reps)
+    """{"variant:tile": {ms, eager_ms, gbps (GB/s of input, from ms),
+    plain_ms}}, the kernels timed in turns; plain_reps=0 skips the plain
+    versions' times."""
+    specs = {f"{name}:{tile}": (tile, i8, dp) for tile in tiles
+             for name, (i8, dp) in VARIANTS.items()}
+    ms = kernel_ms({k: (lambda t=t, i8=i8, dp=dp: make(words, t, 1, i8, dp))
+                    for k, (t, i8, dp) in specs.items()}, reps)
     out = {}
-    for name, (_i8, dp) in VARIANTS.items():
-        out[name] = {**ms[name],
-                     "gbps": words.numel() * 4 / ms[name]["ms"] / 1e6}
+    for k, (t, _i8, dp) in specs.items():
+        out[k] = {**ms[k], "gbps": words.numel() * 4 / ms[k]["ms"] / 1e6}
         if plain_reps:
-            out[name]["plain_ms"] = interleaved_ms(
-                {0: lambda dp=dp: _vnext_plain(words, tile, 1, dp)},
+            out[k]["plain_ms"] = interleaved_ms(
+                {0: lambda t=t, dp=dp: _vnext_plain(words, t, 1, dp)},
                 plain_reps, rounds=1)[0]
     return out
 
@@ -226,7 +235,8 @@ def main(argv) -> int:
     result = {**card(), "gate": gate(device), "check": check(), "sizes": {}}
     for n in SIZES:
         words = random_words(n // 512, device, n >> 20)
-        result["sizes"][f"{n >> 20}MiB"] = {"check": check_timed(words),
+        checked = merge(*(check_timed(words, t) for t in TILES))
+        result["sizes"][f"{n >> 20}MiB"] = {"check": checked,
                                             "variants": run(words)}
         del words
     emit(result)

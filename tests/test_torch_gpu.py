@@ -372,7 +372,9 @@ def test_alu_probe_matches_plain(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,tile", [(64, 8), (1024, 64), (2048, 512),
-                                       (264, 24), (8192, 1024)])
+                                       (264, 24), (8192, 1024), (1000, 8),
+                                       (1152, 128), (1000, 200),
+                                       (4096, 2048), (8192, 4096)])
 def test_ablate_probe_matches_plain(cuda_device, rows, tile):
     from csv_simd_tpu_torch.tools import ablate
     from csv_simd_tpu_torch.tools._common import random_words
@@ -449,7 +451,9 @@ def test_kbench_probe_matches_plain(cuda_device, rows, tile):
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,tile", [(8, 8), (64, 8), (1000, 8),
                                        (1024, 64), (264, 24), (2048, 512),
-                                       (8192, 2048)])
+                                       (8192, 2048), (384, 16), (640, 32),
+                                       (128, 128), (1152, 128),
+                                       (8192, 8192)])
 def test_vnext_direct_pack_matches_b3(cuda_device, rows, tile):
     """The atomic-free fold pack against its plain version and B3 (words
     and parity), and against golden on CSV bytes."""
@@ -481,10 +485,15 @@ def test_lab_kernels_reject_bad_input(cuda_device):
         _kernels.probe_kbench(w, "full", 64, 0)
     with pytest.raises(ValueError):
         _kernels.probe_kbench(w.to(torch.uint8), "full", 48, 0)
+    # no tile limit: any multiple of 8 that divides the rows
     with pytest.raises(ValueError):
-        _kernels.probe_vnext(w, 8192, 0)
+        _kernels.probe_vnext(w, 1000, 0)
+    with pytest.raises(ValueError):
+        _kernels.probe_vnext(w, 12, 0)
     with pytest.raises(ValueError):
         _kernels.probe_vnext(w[:1000], 64, 0)
+    _same(_kernels.probe_vnext(w, 1024, 0), stage1_fused(w, 0,
+                                                         row_tile=1024))
 
 
 @pytest.mark.gpu
@@ -898,3 +907,81 @@ def test_v1_kernel_total_count(cuda_device, chunks):
         _same(got, _stage1_pallas_plain(b, carry, Dialect()))
         assert int(got[1]) == int(golden.structural_mask(
             arr, carry_in=carry).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,chunks", [(8, 64), (24, 48), (128, 64),
+                                         (512, 64), (4096, 64)])
+def test_ablate_modes_launch_their_routes(cuda_device, tile, chunks):
+    """Each ablation mode is one call of its wrapper (the folds at tiles
+    that do not divide 128 also launch fold_words inside it, counted
+    nowhere else), at tiles up to 4,096 rows, with one quote open across
+    every 64 KiB chunk."""
+    from csv_simd_tpu_torch.tools import ablate
+
+    arr = _quoted_span(chunks, tile)
+    w = torch.from_numpy(arr.view("<i4").reshape(-1, 128).copy())
+    w = w.to(cuda_device)
+    one = torch.ones((), dtype=torch.int32, device=cuda_device)
+    for mode in ablate.MODES:
+        before = _kernels.launch_counts()
+        got = ablate.mk(w, mode, tile, one)
+        after = _kernels.launch_counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {"probe_ablate": 1}, mode
+        _same(got, ablate._ablate_plain(w, mode, tile, one))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [8, 128, 512])
+def test_vnext_routes_and_launches(cuda_device, tile):
+    """The direct pack is one call of its wrapper at every tile, over a
+    quote open across every 64 KiB chunk, and equals B3 and golden."""
+    from csv_simd_tpu_torch.tools import vnext
+
+    arr = _quoted_span(64, 3 * tile)
+    w = torch.from_numpy(arr.view("<i4").reshape(-1, 128).copy())
+    w = w.to(cuda_device)
+    before = _kernels.launch_counts()
+    got = vnext.make(w, tile, 1, directpack=True)
+    after = _kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"probe_vnext": 1}
+    _same(got, stage1_fused(w, 1, row_tile=tile))
+    mask = unpack_packed_host(got[0].cpu().numpy(), arr.size, tile)
+    np.testing.assert_array_equal(mask,
+                                  golden.structural_mask(arr, carry_in=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [128, 512])
+def test_chained_cuts_and_direct_pack_graph_replays(cuda_device, tile):
+    """The chained ablation cuts and the direct pack replayed three times
+    from one captured CUDA graph (outputs cleared before each), with a
+    device carry and a quote open across every chunk: a status word,
+    ticket or side word left from an earlier replay would show."""
+    from csv_simd_tpu_torch.tools import ablate, vnext
+
+    arr = _quoted_span(32, tile)
+    w = torch.from_numpy(arr.view("<i4").reshape(-1, 128).copy())
+    w = w.to(cuda_device)
+    one = torch.ones((), dtype=torch.int32, device=cuda_device)
+    calls = {mode: (lambda m=mode: ablate.mk(w, m, tile, one))
+             for mode in ("full", "v3", "v3_mmonly", "noscan")}
+    calls["directpack"] = lambda: vnext.make(w, 128, one, directpack=True)
+    want = {"directpack": vnext._vnext_plain(w, 128, 1, True),
+            **{m: ablate._ablate_plain(w, m, tile, 1) for m in calls
+               if m != "directpack"}}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = {name: fn() for name, fn in calls.items()}
+    for _ in range(3):
+        for outs in got.values():
+            for g in outs:
+                g.zero_()
+        graph.replay()
+        for name in calls:
+            _same(got[name], want[name])
