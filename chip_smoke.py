@@ -67,8 +67,9 @@ Phases, each of which fails the run on any error:
    once a chunk, the carry chained on the card); build_index_device on
    the block; and the entry points of B4, B5 and B6 on the block;
 5. kernel and plain times on the card at the paths' shapes (B3 and B6 at
-   64 MiB also from CUDA graphs, beside their eager times), and the
-   parts of create at 1 GiB;
+   64 MiB also from CUDA graphs, beside their eager times; B5 from CUDA
+   graphs at 64 MiB and 1 GiB, beside its eager times), and the parts of
+   create at 1 GiB;
 6. the measurement path (csv_simd_tpu_torch.tools, each tool's run as
    `python -m csv_simd_tpu_torch.tools.<name>` runs it, after its gate in
    phase 2, and after its check, which holds every kernel it then times
@@ -93,18 +94,19 @@ Phases, each of which fails the run on any error:
    create_packed and a warm create at 1 GiB: the five device ops that
    took the most time and the device-busy share of the traced window.
    The trace must name B1's one pass (`mask_pack`, at least twice: B3
-   runs it too) and B3's relayout (`fold_words`), and hold no
-   `chunk_parity`: both builds read their input once. A second
+   runs it too) and B3's relayout (`fold_words`). A second
    trace gives each probe and lab kernel's device time a launch at 64 MiB
-   (the wide-store kernels among them), with B1's one pass (`mask_pack`)
-   beside the v4full cut's (`ablate2_v4full`); it must name the Mosaic
-   probes' kernels, `ablate2_v4full`, `v1_words` and both int8 products,
-   `concat_mm<true, false>` (the concat sum) and `concat_mm<false, true>`
-   (the OR of block products). A third, short trace of the stage
-   ablation's chained cuts and the direct fold pack at tiles 128 and 512
-   must name their one-pass kernels and hold no `chunk_parity` and no
-   `row_parity`: they read their input once (only B5 runs the two-pass
-   carry).
+   (the wide-store kernels and B5 among them), with B1's one pass
+   (`mask_pack`) beside the v4full cut's (`ablate2_v4full`) and B5's
+   (`v2_pack`); it must name the Mosaic
+   probes' kernels, `ablate2_v4full`, `v1_words`, `v2_pack`, both int8
+   products, `concat_mm<true, false>` (the concat sum) and
+   `concat_mm<false, true>` (the OR of block products), and the one-pass
+   kernels of the stage ablation and the direct fold pack at tiles 128
+   and 512 (`ablate_pass`, `vnext_pack`, and at 512 `mask_pack` and
+   `fold_words`). Neither trace may name a kernel of the two-pass carry
+   (`chunk_parity`, `chunk_carry_scan`, `pack_v2`, `row_parity`): no
+   kernel of the port reads its input twice.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -234,9 +236,11 @@ def bounds(timed: dict, hi_ops: int) -> dict:
     of their first input) and scaled by input size (each grows with it),
     the inputs read once
     and the output written once, against the card's peaks. B6's and the
-    v1 variants' plain versions compute on one byte an int32; their
+    v1 variants' plain versions compute on one byte an int32, and B5's
+    SWAR plain version overstates the work with its cumsums; their
     operations are counted on B1's plain version (four bytes an int32)
-    over the same bytes, the same mask in fewer operations.
+    over the same bytes, the same mask in fewer operations
+    ("stage1_v2_swar" keeps B5's count on its own plain version).
     Two cases count what the function needs instead: the wide-store
     gather reads 1/8 of its input (lanes 0-15 of each row), and a pack
     product does a multiply-add (two operations, on the int8 tensor
@@ -285,6 +289,7 @@ def bounds(timed: dict, hi_ops: int) -> dict:
         "stage1_fold": (w, lambda: stage1_swar_xla(w, 0)),
         "stage1_seq": (w, lambda: stage1_seq_xla(w, 0)),
         "stage1_v2": (w, lambda: stage1_swar_jnp(w, 0)),
+        "stage1_v2_swar": (w, lambda: stage1_swar_jnp(w, 0)),
         "stage1_v1": (b, lambda: _stage1_pallas_plain(b, 0, d)),
         "stage1_v4_emit": (w, b1n),
         "dma_probe": (w, lambda: dma_probe._write_plain(w, "narrow", 1)),
@@ -318,7 +323,7 @@ def bounds(timed: dict, hi_ops: int) -> dict:
     for name, n_in in timed.items():
         x, fn = plain[name]
         ops, out_bytes = plain_work(fn)
-        if name in ("stage1_v1", "kbench"):
+        if name in ("stage1_v1", "kbench", "stage1_v2"):
             ops = swar_ops
         scale = n_in / sum(t.numel() * t.element_size() for t in
                            (x if isinstance(x, tuple) else (x,)))
@@ -798,7 +803,7 @@ def probe_trace(words: torch.Tensor) -> dict:
     """{kernel: (mean device ms a launch, launches)} from a torch.profiler
     trace of five calls of every stream and ablation mode (tiles 128 and
     512), of
-    B1's narrow build, every B1 stage cut, every v1-layout variant (the
+    B1's narrow build, B5, every B1 stage cut, every v1-layout variant (the
     words as bytes), the direct fold pack (tiles 128 and 512) and the
     wide-store gather, lane
     sum and both pack products (on the words and their (rows/8, 1024)
@@ -807,6 +812,7 @@ def probe_trace(words: torch.Tensor) -> dict:
     & 127 as indices) and the concat product, and two of every ALU op
     count and mix on words."""
     from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.ops.stage1_v2 import stage1_pallas_v2
     from csv_simd_tpu_torch.ops.stage1_v4 import stage1_fused_v4
     from csv_simd_tpu_torch.tools import (
         ablate,
@@ -839,6 +845,7 @@ def probe_trace(words: torch.Tensor) -> dict:
                     for mode in ablate.MODES:
                         ablate.mk(words, mode, tile, 1)
                 stage1_fused_v4(words, 1, count_nonascii=False)
+                stage1_pallas_v2(words, 1)
                 for cut in _kernels.ABLATE2_CUTS:
                     ablate2.mk(words, cut, 512, 1)
                 for name in ("nopar", "lanescan", "roll"):
@@ -865,35 +872,18 @@ def probe_trace(words: torch.Tensor) -> dict:
     return {_short(name): (ms / n, n) for name, (ms, n) in per.items()}
 
 
-def carry_trace(words: torch.Tensor) -> dict:
-    """{kernel: (mean device ms a launch, launches)} from a torch.profiler
-    trace of one call of each chained ablation cut and of the direct fold
-    pack, at tiles 128 and 512. Fails unless it names the probe's one pass
-    (`ablate_pass`), the direct pack's (`vnext_pack`) and, at tile 512,
-    B1's one pass and `fold_words`; and if it names `chunk_parity` or
-    `row_parity`."""
-    from csv_simd_tpu_torch.tools import ablate, vnext
-    from csv_simd_tpu_torch.utils import profiling
+# the kernels of the two-pass carry, which the port no longer has: pass A
+# and the carry scan of stage1_core.cuh, B5's pass B, and the probes'
+# former row parity pass
+TWO_PASS = ("chunk_parity", "chunk_carry_scan", "pack_v2", "row_parity")
 
-    with tempfile.TemporaryDirectory() as trace_dir:
-        with profiling.device_trace(trace_dir):
-            for tile in (128, 512):
-                for mode in ("full", "v3", "v3_mmonly"):
-                    ablate.mk(words, mode, tile, 1)
-                vnext.make(words, tile, 1, directpack=True)
-        per, _busy = _device_ops(os.path.join(trace_dir,
-                                              profiling.TRACE_FILE))
-    ops = {_short(name): (ms / n, n) for name, (ms, n) in per.items()}
-    names = " ".join(ops)
-    for kernel in ("ablate_pass", "vnext_pack", "mask_pack", "fold_words"):
-        if kernel not in names:
-            raise AssertionError(f"the carry trace names no {kernel}: "
-                                 f"{sorted(ops)}")
-    for kernel in ("chunk_parity", "row_parity"):
-        if kernel in names:
-            raise AssertionError(f"the carry trace names {kernel}: "
-                                 f"{sorted(ops)}")
-    return ops
+
+def no_two_pass(names, what: str) -> None:
+    """Fail if a traced kernel name holds a two-pass kernel's name."""
+    for kernel in TWO_PASS:
+        hit = [name for name in names if kernel in name]
+        if hit:
+            raise AssertionError(f"{what} names {kernel}: {hit}")
 
 
 def write_big_csv(block: bytes) -> tuple:
@@ -1311,7 +1301,13 @@ def main() -> int:
     bw_bytes, bb_bytes = bw.numel() * 4, bb.numel()
     ms["stage1_seq"] = cuda_ms(lambda: stage1_fused_seq(bw, 0), 20)
     ms["stage1_seq_plain"] = cuda_ms(lambda: stage1_seq_xla(bw, 0), 5)
-    ms["stage1_v2"] = cuda_ms(lambda: stage1_pallas_v2(bw, 0), 20)
+    # B5 from CUDA graphs (the kernel alone; its `ms` is the 64 MiB one)
+    # beside its eager times, at 64 MiB and 1 GiB
+    ms["stage1_v2"] = graph_ms(lambda: stage1_pallas_v2(bw, 0), 20)
+    ms["stage1_v2_eager"] = cuda_ms(lambda: stage1_pallas_v2(bw, 0), 20)
+    ms["stage1_v2_1GiB"] = graph_ms(lambda: stage1_pallas_v2(w2d, 0), 20)
+    ms["stage1_v2_1GiB_eager"] = cuda_ms(lambda: stage1_pallas_v2(w2d, 0),
+                                         20)
     ms["stage1_v2_plain"] = cuda_ms(lambda: stage1_swar_jnp(bw, 0), 5)
     # B3 and B6 at 64 MiB from CUDA graphs (the kernels alone; B6's is its
     # `ms`) beside their eager times, which the wrappers' host work sets
@@ -1523,32 +1519,30 @@ def main() -> int:
                                              profiling.TRACE_FILE))
     top_ops = sorted(per.items(), key=lambda kv: -kv[1][0])[:5]
     traced = {k: sum(n for name, (_, n) in per.items() if k in name)
-              for k in ("mask_pack", "fold_words", "chunk_parity")}
+              for k in ("mask_pack", "fold_words")}
     # B1's one pass runs in both builds: B3 is it and then fold_words
     if traced["mask_pack"] < 2 or not traced["fold_words"]:
         raise AssertionError(f"the trace lacks B1's one pass twice or B3's "
                              f"relayout (fold_words): {traced}")
     # both builds read their input once
-    if traced["chunk_parity"]:
-        raise AssertionError(f"a warm build launched chunk_parity: {traced}")
+    no_two_pass(per, "the trace of the warm builds")
     # the probes' kernels in a second trace, at 64 MiB: device time a
     # launch by name, beside phase 6's graph and eager times
     trace_words = random_words(BLOCK_BYTES // 512, device, 64)
     probe_ops = probe_trace(trace_words)
-    carry_ops = carry_trace(trace_words)
     del trace_words
     # the two int8 products, one kernel template: T12's sum and the mmL
-    # and mmLb OR of block products
+    # and mmLb OR of block products; the stage ablation's one pass and
+    # the direct fold pack's, and at tile 512 B3's pair
     for kernel in ("mm32_pack", "lane_gather", "cmp8", "select8", "shift_add",
                    "usum", "concat_mm<true, false>", "concat_mm<false, true>",
-                   "ablate2_v4full", "v1_words", "vnext_pack"):
-        if kernel not in probe_ops:
+                   "ablate2_v4full", "v1_words", "vnext_pack", "v2_pack",
+                   "ablate_pass", "mask_pack", "fold_words"):
+        if not any(name == kernel or name.startswith(kernel + "<")
+                   for name in probe_ops):
             raise AssertionError(f"the probe trace names no {kernel}: "
                                  f"{sorted(probe_ops)}")
-    for kernel in ("chunk_parity", "row_parity"):
-        if any(kernel in name for name in probe_ops):
-            raise AssertionError(f"the probe trace names {kernel}: "
-                                 f"{sorted(probe_ops)}")
+    no_two_pass(probe_ops, "the probe trace")
 
     gb = padded_rows(size) * ROW_BYTES / 1e9
     print(f"times on {card}:")
@@ -1561,6 +1555,10 @@ def main() -> int:
     print(f"  B3 and B6 at 64 MiB (CUDA graph ms / eager ms): stage1_fold "
           f"{ms['stage1_fold_64MiB']:.4f} / {ms['stage1_fold_64MiB_eager']:.4f}"
           f", stage1_v1 {ms['stage1_v1']:.4f} / {ms['stage1_v1_eager']:.4f}")
+    print(f"  B5 (v2_pack) (CUDA graph ms / eager ms): 64 MiB "
+          f"{ms['stage1_v2']:.4f} / {ms['stage1_v2_eager']:.4f}, 1 GiB "
+          f"{ms['stage1_v2_1GiB']:.4f} / {ms['stage1_v2_1GiB_eager']:.4f} "
+          f"({gb / ms['stage1_v2_1GiB'] * 1e3:.1f} GB/s)")
     print(f"  stage1_fold at 1 GiB: {gb / ms['stage1_fold'] * 1e3:.1f} GB/s "
           f"of padded input; stage1_v4: "
           f"{gb / ms['stage1_v4'] * 1e3:.1f} GB/s")
@@ -1645,16 +1643,13 @@ def main() -> int:
     print(f"library calls on {card} (ms; the Mosaic probes' at 64 MiB, the "
           "rest at 1 GiB): " + ", ".join(
               f"{k} {v:.4f}" for k, v in library_ms.items()))
-    print(f"the chained ablation cuts and the direct fold pack at tiles 128 "
-          f"and 512 in a trace at 64 MiB on {card} (device ms a launch; no "
-          "chunk_parity, no row_parity): " + "; ".join(
-              f"{name} {t:.4f} x{n}" for name, (t, n) in
-              sorted(carry_ops.items())))
     one_pass = {k: v for k, v in probe_ops.items()
-                if k.startswith(("mask_pack", "ablate2_v4full", "concat_mm"))}
-    print(f"B1's one pass beside the v4full cut's, and the two int8 products, "
-          f"64 MiB trace on {card} (device ms a launch): " + "; ".join(
-              f"{k} {t:.4f} x{n}" for k, (t, n) in sorted(one_pass.items())))
+                if k.startswith(("mask_pack", "ablate2_v4full", "v2_pack",
+                                 "concat_mm"))}
+    print(f"B1's one pass beside the v4full cut's and B5's, and the two int8 "
+          f"products, 64 MiB trace on {card} (device ms a launch): "
+          + "; ".join(f"{k} {t:.4f} x{n}"
+                      for k, (t, n) in sorted(one_pass.items())))
 
     print("gate with the timed inputs: " + ", ".join(
         f"{k} {v}" for k, v in gate.checks.items())
@@ -1728,6 +1723,7 @@ def main() -> int:
     gib, blk_words = padded_rows(size) * ROW_BYTES, BLOCK_BYTES
     timed = {"stage1_v4": gib, "row_prefix": gib // 8, "stage1_fold": gib,
              "stage1_seq": bw_bytes, "stage1_v2": bw_bytes,
+             "stage1_v2_swar": bw_bytes,
              "stage1_v1": bb_bytes, "stage1_v4_emit": gib,
              "dma_probe": 16 * blk_words, "dma_probe2.write": 16 * blk_words,
              "dma_probe2.read": 16 * blk_words, "vpu_roofline": blk_words,
@@ -1748,6 +1744,11 @@ def main() -> int:
         for name, route_, source, replaces, counter, launches, gated
         in table
     ]
+    old = bound.pop("stage1_v2_swar")
+    print(f"B5's bound at 64 MiB on {card}: {bound['stage1_v2'][0]:.4f} ms "
+          f"{bound['stage1_v2'][1]} ({bound['stage1_v2'][3]:.4g} ops, B1's "
+          f"plain version's count), was {old[0]:.4f} ms {old[1]} "
+          f"({old[3]:.4g} ops, its own SWAR plain version's)")
     print(f"bounds on {card} (the least time for the timed inputs at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s and "
           f"{INT32_OPS_PER_S / 1e12:.1f} T int32 ops/s, the pack products "

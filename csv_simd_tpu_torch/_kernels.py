@@ -142,8 +142,6 @@ def _library():
         lib.csv_fold_words.restype = i
         lib.csv_v1_words.argtypes = [vp, ll, ll, vp, vp, vp]
         lib.csv_v1_words.restype = i
-        lib.csv_stage1_v2_chunks.argtypes = [ll]
-        lib.csv_stage1_v2_chunks.restype = ll
         lib.csv_stage1_v2.argtypes = [vp, ll, vp, vp, vp, vp, i, i, i, i, i,
                                       i, i, vp]
         lib.csv_stage1_v2.restype = i
@@ -441,7 +439,8 @@ def v1_words(seq: torch.Tensor, count_from: int = 0):
 def stage1_v2(words: torch.Tensor, carry_in, dialect):
     """Kernel B5 on CUDA (rows, 128) int32 byte quads, rows % 8 == 0 ->
     (v2-layout packed (rows/8, 128) int32, count 0-d int32, parity 0-d
-    int32)."""
+    int32): one launch of csrc/stage1_pack.cu `v2_pack`, B1's one pass
+    with the v2 words written from its staged emit."""
     _check_words(words, "stage1_v2")
     n_bytes = _check_stage1_bytes(words, "stage1_v2")
     structural = _structural(dialect, "stage1_v2")
@@ -451,7 +450,7 @@ def stage1_v2(words: torch.Tensor, carry_in, dialect):
         carry_ptr, carry_int, _keep = _carry(carry_in, dev)
         out = torch.empty((n_bytes // 512 // 8, 128), dtype=torch.int32,
                           device=dev)
-        scratch = torch.empty(2 * lib.csv_stage1_v2_chunks(n_bytes),
+        scratch = torch.empty(lib.csv_stage1_v4_chunks(n_bytes) + 1,
                               dtype=torch.int32, device=dev)
         scalars = torch.empty(3, dtype=torch.int32, device=dev)
         err = lib.csv_stage1_v2(

@@ -1,5 +1,9 @@
-// The B1 stage-cut probe for Hopper (sm_90a): kernel B1's pass B cut after
-// each of its stages, to show what each stage costs inside B1 itself.
+// The B1 stage-cut probe for Hopper (sm_90a): the two-pass B1's pass B cut
+// after each of its stages, and B1's one pass (v4full). The eight cuts
+// before v4full measure the stages of that two-pass-era pass B, one 16-byte
+// load a thread a step, not of B1's one pass; they stay on it because each
+// runs at 60% of its bound or better (a kernel at half its bound is not
+// redesigned). The stages of B1's one pass are measured by probe_ablate.cu.
 //
 // Replaces tools/ablate2.py `mk_microkernel` (pallas_call line 136), which
 // cut the v4 build (B1) at ten stages over (rows, 128) int32 with the default

@@ -1,10 +1,10 @@
-// One-block exclusive scan shared by the stage-1 build (XOR of quote
-// parities) and the row prefix (sum of row popcounts): the second pass of
-// each kernel's two-pass cross-block carry. The inputs are one value per
-// block of the first pass, a few thousand at most, so one block of 1024
-// threads scans them: each thread folds a contiguous segment, a warp scan
-// with __shfl_up_sync and a scan over the 32 warp totals give each
-// segment its incoming value, and each thread writes its segment.
+// One-block exclusive sum shared by the row prefix (prefix.cu, B2) and B1n's
+// emit_prefix (stage1_v4.cu): the second pass of their cross-block sums of
+// row popcounts. The inputs are one value per block of the first pass, a
+// few thousand at most, so one block of 1024 threads scans them: each
+// thread folds a contiguous segment, a warp scan with __shfl_up_sync and a
+// scan over the 32 warp totals give each segment its incoming value, and
+// each thread writes its segment.
 #pragma once
 
 #include <cstdint>
@@ -13,11 +13,6 @@ namespace csv_scan {
 
 constexpr int kThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
-
-struct Xor {
-  static constexpr int kIdentity = 0;
-  __device__ static int apply(int a, int b) { return a ^ b; }
-};
 
 struct Plus {
   static constexpr int kIdentity = 0;

@@ -46,6 +46,7 @@
 //
 // The dual-rail carry, the int8 MXU scans and the lane-placed pack matmuls
 // of the TPU kernel were Mosaic workarounds and have no counterpart here.
+#include "scan.cuh"
 #include "stage1_core.cuh"
 
 namespace {

@@ -8,8 +8,13 @@ between the two packages if both pad to the same row count.
 
 v2 word layout: output word (g, lane), bit (8*b + r) covers flat byte
 ((g*8 + r) * 128 + lane) * 4 + b (b = byte-in-word 0..3, r = row in
-group 0..7). `unpack_words_v2_host` inverts it. On a CUDA tensor B5
-launches csrc/stage1_pack.cu; on a CPU tensor it runs the plain version.
+group 0..7). `unpack_words_v2_host` inverts it. That is B3's fold at
+tile 8 in row order, so every word lies in one 64 KiB chunk of B1's one
+pass: on a CUDA tensor B5 launches csrc/stage1_pack.cu `v2_pack` once,
+B1's one pass (the input read once, the carry by decoupled look-back)
+with the v2 words written from its staged emit. Its plain version on
+B1's words is `_v2_from_seq_plain`. On a CPU tensor B5 runs the plain
+version, `stage1_swar_jnp`.
 The JAX flags `row_tile`, `row_scan` and `interpret` chose the TPU
 kernel's grid and scan construction and change nothing in the output;
 they are accepted and do nothing here.
@@ -21,8 +26,14 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_DIALECT, Dialect
-from .stage1_v3 import _as_carry, _check_rows, _on_device
+from .stage1_v3 import (
+    _as_carry,
+    _check_rows,
+    _fold_from_seq_plain,
+    _on_device,
+)
 from .swar import (
+    popcount32,
     swar_broadcast_flag,
     swar_eq,
     swar_popcount_flags,
@@ -89,13 +100,27 @@ def stage1_swar_jnp(w2d: torch.Tensor, carry_in=0,
     return packed, count, parity
 
 
+def _v2_from_seq_plain(seq_words: torch.Tensor):
+    """The plain version of `v2_pack`'s staged emit on any device: B1's
+    sequential words of rows x 512 bytes (rows * 16 int32, rows % 8 == 0,
+    any shape; bit m of word w covers byte 32w + m) -> (v2-layout words
+    (rows/8, 128) int32, structural count 0-d int32 of all the words).
+    The v2 layout is the fold at tile 8 in row order: bit 8b + r of word
+    (g, lane) is bit 4(lane % 8) + b of sequential word (8g + r)*16 +
+    lane/8."""
+    words = _fold_from_seq_plain(seq_words, 8, order=tuple(range(8)))
+    return words, popcount32(seq_words.reshape(-1)).sum(dtype=torch.int32)
+
+
 def stage1_pallas_v2(w2d: torch.Tensor, carry_in=0,
                      dialect: Dialect = DEFAULT_DIALECT,
                      row_tile: int = DEFAULT_ROW_TILE_V2,
                      row_scan: str = "roll", interpret: bool = False):
     """Kernel B5: (rows, 128) int32 byte quads + carry parity (an int or
     a 0-d integer tensor, read on the device) -> (packed (rows//8, 128)
-    int32 v2 words, structural count, parity_out), both 0-d int32."""
+    int32 v2 words, structural count, parity_out), both 0-d int32. On a
+    CUDA tensor one launch of `v2_pack` (B1's one pass with the v2 words
+    from its staged emit); on a CPU tensor the plain version."""
     _check_rows(w2d, row_tile)
     if w2d.dtype != torch.int32:
         raise ValueError(f"expected int32 byte quads, got {w2d.dtype}")

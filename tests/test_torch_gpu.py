@@ -985,3 +985,69 @@ def test_chained_cuts_and_direct_pack_graph_replays(cuda_device, tile):
         graph.replay()
         for name in calls:
             _same(got[name], want[name])
+
+
+def _quoted_rows(rows: int, seed: int) -> torch.Tensor:
+    """(rows, 128) int32 of _quoted_span's bytes, cut to rows x 512 bytes
+    (a last chunk that may be partial), the default dialect's quote
+    opened at byte 100 and closed 100 bytes before the end."""
+    arr = _quoted_span(-(-rows // 128), seed)[:rows * 512].copy()
+    arr[arr == 0x22] = ord("x")
+    arr[100] = arr[arr.size - 100] = 0x22
+    return torch.from_numpy(arr.view("<i4").reshape(rows, 128).copy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 1_000, 40_000, 80_008])
+def test_v2_pack_past_the_resident_grid(cuda_device, rows):
+    """B5 at up to 626 chunks, more than the card holds at once (about
+    264 blocks, several chunks each), the last chunk partial, a quote
+    open from the first chunk to the last: three dialects (the SWAR and
+    the __vcmpeq4 classify), carries 0, 1 and a 0-d device 1; one launch
+    a call; words, count and parity == the plain version."""
+    w = _quoted_rows(rows, rows).to(cuda_device)
+    dev_one = torch.ones((), dtype=torch.int32, device=cuda_device)
+    for kw in DIALECTS:
+        d = Dialect(**kw)
+        for carry in (0, 1, dev_one):
+            before = _kernels.launch_counts()["stage1_v2"]
+            got = stage1_pallas_v2(w, carry, d, row_tile=8)
+            assert _kernels.launch_counts()["stage1_v2"] == before + 1
+            _same(got, stage1_swar_jnp(w, int(carry), d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 136, 40_000])
+def test_v2_pack_is_the_relaid_b1_words(cuda_device, rows):
+    """`v2_pack`'s words and count == `_v2_from_seq_plain` on B1's own
+    words from the card, and its parity == B1's, three dialects."""
+    from csv_simd_tpu_torch.ops.stage1_v2 import _v2_from_seq_plain
+
+    w = _quoted_rows(rows, 3 * rows).to(cuda_device)
+    for kw in DIALECTS:
+        d = Dialect(**kw)
+        for carry in (0, 1):
+            seq, par = stage1_fused_v4(w, carry, d)[:2]
+            words, count = _v2_from_seq_plain(seq)
+            _same(stage1_pallas_v2(w, carry, d, row_tile=8),
+                  (words, count, par))
+
+
+@pytest.mark.gpu
+def test_v2_pack_graph_replays(cuda_device):
+    """One B5 call with a device carry captured in a CUDA graph and
+    replayed three times (outputs cleared before each): a status word,
+    ticket or count left from an earlier replay would show."""
+    w = _quoted_rows(40_000, 11).to(cuda_device)
+    one = torch.ones((), dtype=torch.int32, device=cuda_device)
+    want = stage1_swar_jnp(w, 1)
+    _same(stage1_pallas_v2(w, one, row_tile=8), want)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = stage1_pallas_v2(w, one, row_tile=8)
+    for _ in range(3):
+        for g in got:
+            g.zero_()
+        graph.replay()
+        _same(got, want)

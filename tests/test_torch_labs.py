@@ -301,6 +301,26 @@ def test_stage1_time_checks_each_classify_dialect(dialect):
     np.testing.assert_array_equal(port.numpy(), np.asarray(jax_b1))
 
 
+@pytest.mark.parametrize("dialect", ["default", "quote_a2"])
+def test_stage1_time_checks_b5_each_classify_dialect(dialect):
+    """The tool's B5 check on its own kind of input passes on the CPU, and
+    the port's v2 words, count and parity there equal the JAX B5 kernel's
+    in interpret mode for the dialect."""
+    from csv_simd_tpu.ops.stage1_v2 import stage1_pallas_v2 as jstage1_v2
+    from csv_simd_tpu_torch.ops.stage1_v2 import stage1_pallas_v2
+    from csv_simd_tpu_torch.tools import stage1_time
+    from csv_simd_tpu_torch.tools._common import csv_words
+
+    d = stage1_time.DIALECTS[dialect]
+    words = csv_words(64, "cpu", 7)
+    assert stage1_time.check_v2(words, d) == {"checks": 3, "max_abs_err": 0}
+    port = stage1_pallas_v2(words, 1, d)
+    jax_b5 = jstage1_v2(jnp.asarray(words.numpy()), 1, d, row_tile=64,
+                        interpret=True)
+    for got, want in zip(port, jax_b5):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_stage1_time_exits_2_without_a_card(monkeypatch):
     from csv_simd_tpu_torch.tools import stage1_time
 
