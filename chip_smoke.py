@@ -107,6 +107,24 @@ Phases, each of which fails the run on any error:
    `fold_words`). Neither trace may name a kernel of the two-pass carry
    (`chunk_parity`, `chunk_carry_scan`, `pack_v2`, `row_parity`): no
    kernel of the port reads its input twice.
+8. the UTF-8 and typed-column path, last, so that the other paths run in
+   the state they would have without it: the validator kernel
+   (csrc/utf8.cu) against its plain version on edge cases, every length
+   1-600, bad bytes around its chunk, warp, block and grid-step edges,
+   64 MiB of CJK text and 64 MiB of the non-ASCII table (the 1 GiB table
+   with every `text` made `éxt`, the same bytes long);
+   create_packed(validate_utf8=True) on that table (one validator
+   launch, lookups checked) and on the ASCII one (none); an injected
+   0xFF and a cut sequence before a newline each refused, their counts
+   equal to the plain version's on 64 MiB windows; on the 1 GiB tape
+   column_decimal64 and column_float32_exp of field 1 against the host's
+   parse, filter_equals of a row id (one hit a copy) and gather_decoded
+   of field 3 against decode_field; column_decoded on the 64 MiB block
+   against DecodedView; dates and datetimes on a seeded 64 MiB table;
+   then the validator's times (64 MiB and 1 GiB of the non-ASCII table,
+   1 GiB of the ASCII table and of CJK text, its plain version at 64
+   MiB), the warm builds with and without it, and each column's warm
+   time.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -168,7 +186,7 @@ GATED = ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
          "mosaic_probes.matmul32_roll", "mosaic_probes.int8_lane_gather",
          "mosaic_probes.cmp8", "mosaic_probes.select8",
          "mosaic_probes.sublane_concat", "mosaic_probes.unsigned_reduce",
-         "widestore_probe4.concat_mm")
+         "widestore_probe4.concat_mm", "utf8_errs")
 # the gather reads 64 of each input row's 512 bytes; a pack product's
 # work is its multiply-adds, which its plain version's op count misses
 READS_AN_EIGHTH = ("widestore_probe2.s8_st16",)
@@ -886,14 +904,14 @@ def no_two_pass(names, what: str) -> None:
             raise AssertionError(f"{what} names {kernel}: {hit}")
 
 
-def write_big_csv(block: bytes) -> tuple:
+def write_big_csv(block: bytes, tag: str = "") -> tuple:
     """The 1 GiB file: the block's header, then its data rows REPEATS
-    times. Cached in the temporary directory by size."""
+    times. Cached in the temporary directory by size and tag."""
     header_len = block.index(b"\n") + 1
     rows = block[header_len:]
     size = header_len + REPEATS * len(rows)
     path = os.path.join(tempfile.gettempdir(),
-                        f"csv_simd_torch_smoke_{size}.csv")
+                        f"csv_simd_torch_smoke{tag}_{size}.csv")
     if not (os.path.exists(path) and os.path.getsize(path) == size):
         tmp = path + f".{os.getpid()}.part"
         with open(tmp, "wb") as f:
@@ -1030,6 +1048,360 @@ def run_offsets_route(path: str, device, index: np.ndarray, rows_len: int,
     if not np.array_equal(ids, np.tile(np.arange(per_block), REPEATS)):
         raise AssertionError("column(0) differs from the row ids")
     return {"tape": tape, "create_s": create_s}
+
+
+# the non-ASCII 1 GiB table: every b"text" of the block made "éxt", the
+# same four bytes with a two-byte character, so no structural byte moves
+NONASCII_FROM, NONASCII_TO = b"text", "éxt".encode()
+DATE_ROW = 43  # bytes of a row of the date table
+FILTER_ID = 12345  # the row id filter_equals looks for in each copy
+
+
+def block_fields(arr: np.ndarray, index: np.ndarray, per_block: int,
+                 field: int) -> list:
+    """Field `field` of every data row of the 64 MiB block, as bytes."""
+    recs = np.arange(per_block)
+    start, end = truth(index, 0, per_block, recs,
+                       np.full(per_block, field))
+    return [bytes(arr[s:e]) for s, e in zip(start, end)]
+
+
+def fma_float32(fields: list) -> np.ndarray:
+    """The float parses' value of unsigned integer fields: float32
+    v = v * 10 + d a digit, rounded once (v * 10 + d is exact in float64
+    for these fields, so one rounding to float32 is the fused
+    multiply-add's)."""
+    width = max(len(f) for f in fields)
+    digits = (np.array([f.rjust(width, b"0") for f in fields],
+                       dtype=f"S{width}").view(np.uint8)
+              .reshape(-1, width).astype(np.float64) - 48)
+    v = np.zeros(len(fields), np.float32)
+    for j in range(width):
+        v = (v.astype(np.float64) * 10 + digits[:, j]).astype(np.float32)
+    return v
+
+
+def date_table(n_bytes: int, seed: int) -> tuple:
+    """(csv bytes, days, epoch ms, bad rows): rows `id,YYYY-MM-DD,
+    YYYY-MM-DD[ T]HH:MM:SS.fff` of fixed width over the years 1-9999, made
+    from a seed; the bad rows carry month 13 in both columns."""
+    rng = np.random.default_rng(seed)
+    n = (n_bytes - 8) // DATE_ROW
+    days = rng.integers(-719162, 2932897, n)
+    ms = days * 86_400_000 + rng.integers(0, 86_400_000, n)
+    rows = np.empty((n, DATE_ROW), np.uint8)
+    ids = np.arange(n)
+    for k in range(7):
+        rows[:, 6 - k] = 48 + (ids // 10**k) % 10
+    rows[:, 7] = rows[:, 18] = ord(",")
+    rows[:, 8:18] = np.datetime_as_string(days.astype("datetime64[D]")) \
+        .astype("S10").view(np.uint8).reshape(n, 10)
+    rows[:, 19:42] = np.datetime_as_string(ms.astype("datetime64[ms]")) \
+        .astype("S23").view(np.uint8).reshape(n, 23)
+    rows[::2, 29] = ord(" ")  # both date-time separators
+    rows[:, 42] = ord("\n")
+    bad = rng.choice(n, 64, replace=False)
+    rows[bad, 13:15] = rows[bad, 24:26] = np.frombuffer(b"13", np.uint8)
+    return b"id,d,ts\n" + rows.tobytes(), days, ms, np.sort(bad)
+
+
+def cjk_text(n_bytes: int, seed: int) -> np.ndarray:
+    """n_bytes of UTF-8 text in another script: random code points of the
+    CJK block U+4E00-U+9FFF, three bytes each, every word not ASCII; the
+    last n_bytes % 3 bytes are `a`."""
+    rng = np.random.default_rng(seed)
+    cp = rng.integers(0x4E00, 0xA000, n_bytes // 3)
+    out = np.full(n_bytes, ord("a"), np.uint8)
+    chars = out[: 3 * cp.size].reshape(-1, 3)
+    chars[:, 0] = 0xE0 | (cp >> 12)
+    chars[:, 1] = 0x80 | ((cp >> 6) & 0x3F)
+    chars[:, 2] = 0x80 | (cp & 0x3F)
+    return out
+
+
+def warm_s(fn, reps: int = 3) -> list:
+    """Host seconds of `reps` warm calls of fn, each ended by a sync,
+    after one untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def gate_utf8(gate: Gate, device, window: torch.Tensor) -> None:
+    """The validator kernel against its plain version on the card: the
+    corpus of edge cases, every length 1-600 of mixed text, a bad byte at
+    offsets around chunk, warp, block and grid-step edges, 64 MiB of CJK
+    text (every word checked in place) with and without cut sequences,
+    and a 64 MiB window of the non-ASCII table (the words listed), valid
+    and with bad bytes spread over it."""
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.ops.utf8 import _utf8_errs_plain
+
+    def check(t: torch.Tensor, what: str) -> int:
+        got = _kernels.utf8_errs(t)
+        want = torch.tensor(_utf8_errs_plain(t), device=t.device)
+        gate.same("utf8_errs", got, want, what)
+        return int(want)
+
+    cases = [b"\x80", b"\xc0\x80", b"\xc1\xbf", b"\xe0\x80\x80",
+             b"\xe0\x9f\xbf", b"\xed\xa0\x80", b"\xed\x9f\xbf",
+             b"\xee\x80\x80", b"\xf0\x80\x80\x80", b"\xf0\x8f\xbf\xbf",
+             b"\xf4\x8f\xbf\xbf", b"\xf4\x90\x80\x80", b"\xf5\x80\x80\x80",
+             b"\xe2\x82", b"\xf0\x9f\x98", b"a\xc3", b"ok\xff", b"\xfe",
+             "héllo 日本語 \U0001f389".encode()]
+    for c in cases:
+        check(torch.tensor(list(c), dtype=torch.uint8, device=device),
+              f"case {c!r}")
+    rng = np.random.default_rng(8)
+    pool = [c.encode() for c in "aé日😀\n,"] + [b"\xff", b"\x80", b"\xe6\x97"]
+    mixed = np.frombuffer(b"".join(pool[i] for i in rng.integers(
+        0, len(pool), 400)), np.uint8)[:600].copy()
+    t = torch.from_numpy(mixed).to(device)
+    for n in range(1, mixed.size + 1):
+        check(t[:n], f"mixed text, length {n}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for edge in (16, 512, 1024, 8192, 4 * sms * 8192):
+        base = np.full(edge + 64, ord("x"), np.uint8)
+        for off in range(20):
+            for piece in (b"\xff", b"\xe6\x97\xa5", b"\xe6\x97"):
+                arr = base.copy()
+                p = edge - 10 + off
+                arr[p:p + len(piece)] = np.frombuffer(piece, np.uint8)
+                check(torch.from_numpy(arr).to(device),
+                      f"{piece!r} at {p} near edge {edge}")
+    cjk = torch.from_numpy(cjk_text(BLOCK_BYTES, 5)).to(device)
+    if check(cjk, "64 MiB of CJK text") != 0:
+        raise AssertionError("the CJK text is not valid UTF-8")
+    cjk[torch.arange(7, cjk.numel(), 1_000_003, device=device)] = 0x41
+    if check(cjk, "64 MiB of CJK text with cut sequences") == 0:
+        raise AssertionError("cut sequences went uncounted")
+    del cjk
+    if check(window, "64 MiB of the non-ASCII table") != 0:
+        raise AssertionError("the non-ASCII table is not valid UTF-8")
+    bad = window.clone()
+    bad[torch.arange(1000, bad.numel(), 997_331, device=device)] = 0xFF
+    if check(bad, "64 MiB of the non-ASCII table with bad bytes") == 0:
+        raise AssertionError("bad bytes went uncounted")
+
+
+def utf8_bound(t: torch.Tensor) -> tuple:
+    """The validator's bound on t (bound() entry: ms, by, bytes moved,
+    operations, rate): it reads t once and writes 8 bytes; its operations
+    are the plain version's per byte (counted on 256 KiB of t on the CPU)
+    four bytes an operation, on the 16-byte chunks it checks in full (a
+    byte >= 0x80 in the chunk or in the three bytes before it), and one
+    a 4-byte word on the others."""
+    from csv_simd_tpu_torch.ops.utf8 import _utf8_errs_plain
+
+    sample = t[: 256 << 10].cpu()
+    ops_per_byte = plain_work(lambda: _utf8_errs_plain(sample))[0] \
+        / sample.numel()
+    n = t.numel() - t.numel() % 16
+    hi = (t[:n] >= 0x80).view(-1, 16)
+    full = hi.any(dim=1)
+    full[1:] |= hi[:-1, 13:].any(dim=1)
+    n_full = int(full.sum()) * 16
+    ops = ops_per_byte / 4 * n_full + (t.numel() - n_full) / 4
+    moved = t.numel() + 8
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", moved, ops,
+            INT32_OPS_PER_S)
+
+
+def run_utf8_typed_path(gate: Gate, device, block: bytes, index: np.ndarray,
+                        per_block: int, ascii_path: str) -> dict:
+    """The validator and the typed and decoded columns: gates first, then
+    times. create_packed(validate_utf8=True) on the non-ASCII 1 GiB table
+    (one validator launch) and on the ASCII one (none); one injected 0xFF
+    and one cut sequence before a newline each refused; the seven new
+    columns gated on the 1 GiB tape, the 64 MiB block and a seeded 64 MiB
+    date table; then the validator's and the columns' times."""
+    import csv_simd_tpu_torch as ct
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.ops.utf8 import _utf8_errs_plain
+    from csv_simd_tpu_torch.tools._common import cuda_ms, graph_ms
+
+    nblock = block.replace(NONASCII_FROM, NONASCII_TO)
+    if len(nblock) != len(block) or nblock == block:
+        raise AssertionError("the substitution moved bytes or found none")
+    path, rows_len = write_big_csv(nblock, "_nonascii")
+    n_records = REPEATS * per_block
+    out = {"path": path}
+
+    # gates: the kernel against its plain version on the card
+    head = torch.from_numpy(np.fromfile(path, np.uint8, BLOCK_BYTES)).to(
+        device)
+    gate_utf8(gate, device, head)
+    del head
+
+    # the path: create_packed with the validator, once on each table
+    tape, l_utf8 = driven(ct.create_packed, path, validate_utf8=True,
+                          device=device)
+    for name in ("stage1_v4", "row_prefix", "utf8_errs"):
+        need(l_utf8, name, 1, "create_packed(validate_utf8=True), non-ASCII")
+    if tape.num_data_records != n_records or int(tape.nonascii_count) == 0:
+        raise AssertionError("the non-ASCII tape's records or count differ")
+    data = np.memmap(path, dtype=np.uint8, mode="r")
+    out["lookups_per_s"] = check_lookups(tape, data, index, rows_len,
+                                         per_block, 4242, device)
+    atape, l_ascii = driven(ct.create_packed, ascii_path, validate_utf8=True,
+                            device=device)
+    if l_ascii["utf8_errs"] != 0 or int(atape.nonascii_count) != 0:
+        raise AssertionError(f"the ASCII table launched the validator: "
+                             f"{l_ascii}")
+    if int(_kernels.utf8_errs(atape.data)) != 0:
+        raise AssertionError("the ASCII table counted errors")
+    out["launches"], out["launches_ascii"] = l_utf8, l_ascii
+
+    # one injected 0xFF, one cut sequence before a newline: refused, and
+    # counted as the plain version counts them on a 64 MiB window
+    host = np.fromfile(path, np.uint8)
+    recs = np.array([REPEATS // 2 * per_block + 1234,
+                     (REPEATS - 1) * per_block + 77])
+    start, end = truth(index, rows_len, per_block, recs, np.array([5, 15]))
+    faults = ((int(start[0]) + 1, b"\xff"), (int(end[1]) - 2, b"\xe6\x97"))
+    if host[int(end[1])] != ord("\n"):
+        raise AssertionError("the cut sequence is not before a newline")
+    for pos, piece in faults:
+        keep = host[pos:pos + len(piece)].copy()
+        host[pos:pos + len(piece)] = np.frombuffer(piece, np.uint8)
+        try:
+            ct.PackedDeviceTape(host, validate_utf8=True, device=device)
+        except ct.InvalidCsvFormat:
+            pass
+        else:
+            raise AssertionError(f"{piece!r} at {pos} was not refused")
+        lo = max(pos - BLOCK_BYTES // 2, 0) & ~15
+        win = torch.from_numpy(host[lo:lo + BLOCK_BYTES]).to(device)
+        got = int(_kernels.utf8_errs(win))
+        want = _utf8_errs_plain(win)
+        if got != want or got == 0:
+            raise AssertionError(f"{piece!r}: kernel {got}, plain {want}")
+        gate.record("utf8_errs", {"checks": 1, "max_abs_err": 0})
+        host[pos:pos + len(piece)] = keep
+        out.setdefault("fault_counts", []).append(got)
+    del host, win
+
+    # the columns on the 1 GiB tape against the host parse of the block
+    arr = np.frombuffer(nblock, np.uint8)
+    f1 = block_fields(arr, index, per_block, 1)
+    vals, ok = tape.column_decimal64(1)
+    want = np.tile(np.array([int(v) for v in f1], np.int64) * 100, REPEATS)
+    if not (ok.all() and np.array_equal(vals, want)):
+        raise AssertionError("column_decimal64(1) differs from the host")
+    vals, ok = tape.column_float32_exp(1)
+    want = np.tile(fma_float32(f1), REPEATS)
+    if not (bool(ok.all()) and np.array_equal(
+            vals.cpu().numpy().view(np.int32), want.view(np.int32))):
+        raise AssertionError("column_float32_exp(1) differs from the host")
+    fid = FILTER_ID % per_block
+    hits = tape.filter_equals(0, str(fid).encode())
+    if not np.array_equal(hits, np.arange(REPEATS) * per_block + fid):
+        raise AssertionError(f"filter_equals(0, {fid}): {hits[:20]}")
+    raw3 = block_fields(arr, index, per_block, 3)
+    dec = [ct.decode_field(v) for v in raw3]
+    if not any(NONASCII_TO in v for v in dec):
+        raise AssertionError("field 3 holds no non-ASCII text")
+    want_b = np.zeros((per_block, MAX_LEN), np.uint8)
+    for i, v in enumerate(dec):
+        want_b[i, :len(v)] = np.frombuffer(v, np.uint8)
+    want_b = torch.from_numpy(want_b).to(device)
+    want_n = torch.tensor([len(v) for v in dec], dtype=torch.int32,
+                          device=device)
+    all_recs = torch.arange(n_records, dtype=torch.int32, device=device)
+    three = torch.full_like(all_recs, 3)
+    got_b, got_n, got_v = tape.gather_decoded(all_recs, three, MAX_LEN)
+    for r in range(REPEATS):
+        sl = slice(r * per_block, (r + 1) * per_block)
+        if not (torch.equal(got_b[sl], want_b) and torch.equal(got_n[sl],
+                                                                want_n)
+                and bool(got_v[sl].all())):
+            raise AssertionError(f"gather_decoded(3) differs in copy {r}")
+    del got_b, got_n, got_v, want_b
+
+    # column_decoded on the 64 MiB block, dates on a seeded 64 MiB table
+    btape = ct.PackedDeviceTape(nblock, device=device)
+    view = ct.DecodedView(ct.Tape(arr, index, ct.Header.parse(arr)))
+    if btape.column_decoded(3) != view.column(3):
+        raise AssertionError("column_decoded(3) differs from DecodedView")
+    dbytes, days, ms, bad = date_table(BLOCK_BYTES, 2026)
+    dtape = ct.PackedDeviceTape(dbytes, device=device)
+    good = np.ones(days.size, bool)
+    good[bad] = False
+    got, ok = dtape.column_date_days(1)
+    if not (np.array_equal(ok.cpu().numpy(), good) and np.array_equal(
+            got.cpu().numpy(), np.where(good, days, 0))):
+        raise AssertionError("column_date_days differs from the seed")
+    got, ok = dtape.column_datetime64(2, unit="ms")
+    if not (np.array_equal(ok, good) and np.array_equal(
+            got, np.where(good, ms, 0))):
+        raise AssertionError("column_datetime64 differs from the seed")
+    out["date_rows"] = int(days.size)
+
+    # times: the validator (kernel from CUDA graphs and events, the plain
+    # version at 64 MiB), the builds with and without it, the columns
+    win = tape.data[:BLOCK_BYTES]
+    out["ms"] = graph_ms(lambda: _kernels.utf8_errs(win), 20)
+    out["eager_ms"] = cuda_ms(lambda: _kernels.utf8_errs(win), 20)
+    out["plain_ms"] = cuda_ms(lambda: _utf8_errs_plain(win), 3)
+    out["ms_1GiB"] = cuda_ms(lambda: _kernels.utf8_errs(tape.data), 20)
+    out["graph_ms_1GiB"] = graph_ms(lambda: _kernels.utf8_errs(tape.data), 20)
+    out["ms_1GiB_ascii"] = cuda_ms(lambda: _kernels.utf8_errs(atape.data), 20)
+    cjk = torch.from_numpy(cjk_text(tape.data.numel(), 5)).to(device)
+    if int(_kernels.utf8_errs(cjk)) != 0:
+        raise AssertionError("1 GiB of CJK text counted errors")
+    out["ms_1GiB_cjk"] = cuda_ms(lambda: _kernels.utf8_errs(cjk), 20)
+    del cjk
+    if int(_kernels.utf8_errs(tape.data)) != 0:
+        raise AssertionError("the 1 GiB non-ASCII table counted errors")
+    out["bound"] = utf8_bound(win)
+    out["bound_1GiB"] = utf8_bound(tape.data)
+    builds = {
+        "create_packed validate non-ASCII": lambda: ct.create_packed(
+            path, validate_utf8=True, device=device),
+        "create_packed non-ASCII": lambda: ct.create_packed(
+            path, device=device),
+        "create_packed validate ASCII": lambda: ct.create_packed(
+            ascii_path, validate_utf8=True, device=device),
+        "create_packed ASCII": lambda: ct.create_packed(ascii_path,
+                                                        device=device),
+    }
+    out["builds_s"] = {k: warm_s(f) for k, f in builds.items()}
+    out["create_s"] = {
+        "create validate non-ASCII": warm_s(lambda: ct.create(
+            path, backend="cuda", validate_utf8=True, device=device), 2),
+        "create non-ASCII": warm_s(lambda: ct.create(
+            path, backend="cuda", device=device), 2)}
+    columns = {
+        "column_int32(0)": lambda: tape.column_int32(0),
+        "column_float32(1)": lambda: tape.column_float32(1),
+        "column_float32_exp(1)": lambda: tape.column_float32_exp(1),
+        "column_decimal64(1)": lambda: tape.column_decimal64(1),
+        "column_date_days(1)": lambda: tape.column_date_days(1),
+        "column_datetime64(1)": lambda: tape.column_datetime64(1),
+        "filter_equals(0)": lambda: tape.filter_equals(0, str(fid).encode()),
+        "gather_decoded(3)": lambda: tape.gather_decoded(all_recs, three,
+                                                         MAX_LEN),
+    }
+    out["columns_s"] = {k: warm_s(f) for k, f in columns.items()}
+    out["small_s"] = {
+        f"column_decoded(3), {per_block} rows": warm_s(
+            lambda: btape.column_decoded(3)),
+        f"column_date_days(1), {days.size} rows": warm_s(
+            lambda: dtape.column_date_days(1)),
+        f"column_datetime64(2, ms), {days.size} rows": warm_s(
+            lambda: dtape.column_datetime64(2, unit="ms"))}
+    out["rows"] = n_records
+    del tape, atape, btape, dtape, win, all_recs, three
+    torch.cuda.empty_cache()
+    return out
 
 
 def driven(fn, *args, **kw) -> tuple:
@@ -1544,6 +1916,19 @@ def main() -> int:
                                  f"{sorted(probe_ops)}")
     no_two_pass(probe_ops, "the probe trace")
 
+    # phase 8: UTF-8 validation (the validator kernel) and the typed and
+    # decoded columns, gated, then timed; last, so that the other paths'
+    # times are taken in the state the process had before it
+    u8 = run_utf8_typed_path(gate, device, block, index, per_block, path)
+    print(f"create_packed(validate_utf8=True): non-ASCII 1 GiB table "
+          f"launches {u8['launches']}, ASCII table {u8['launches_ascii']}; "
+          f"{BATCHES + 1}x{BATCH} lookups checked; an injected 0xFF and a "
+          f"cut sequence refused (counts {u8['fault_counts']}, equal to the "
+          "plain version's on 64 MiB windows); decimal64, float32_exp, "
+          f"filter_equals and gather_decoded at {u8['rows']} rows, "
+          f"column_decoded at {per_block} rows and dates and datetimes at "
+          f"{u8['date_rows']} rows equal to the host")
+
     gb = padded_rows(size) * ROW_BYTES / 1e9
     print(f"times on {card}:")
     for name in ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
@@ -1573,6 +1958,26 @@ def main() -> int:
           f"({size / stream_s / 1e9:.3f} GB/s); DeviceTape "
           f"{dt_lookups:.0f} lookups/s; PackedDeviceTape "
           f"{res['lookups_per_s']:.0f} lookups/s")
+
+    b1g = u8["bound_1GiB"]
+    print(f"UTF-8 validator on {card}: 64 MiB {u8['ms']:.4f} ms (CUDA graph; "
+          f"eager {u8['eager_ms']:.4f}; plain {u8['plain_ms']:.3f}; bound "
+          f"{u8['bound'][0]:.4f} {u8['bound'][1]}), 1 GiB "
+          f"{u8['ms_1GiB']:.4f} ms (events; graph "
+          f"{u8['graph_ms_1GiB']:.4f}; bound {b1g[0]:.4f} {b1g[1]}, "
+          f"{b1g[3]:.4g} ops; {size / u8['ms_1GiB'] / 1e6:.1f} GB/s), "
+          f"1 GiB of the ASCII table {u8['ms_1GiB_ascii']:.4f} ms, 1 GiB of "
+          f"CJK text {u8['ms_1GiB_cjk']:.4f} ms (events)")
+    print(f"builds with and without the validator on {card} (warm s, 3 "
+          "calls): " + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v)
+                                 for k, v in u8["builds_s"].items())
+          + "; " + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v)
+                             for k, v in u8["create_s"].items()))
+    print(f"typed and decoded columns on {card} (warm s, 3 calls; "
+          f"{u8['rows']} rows of the 1 GiB table unless named): "
+          + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v)
+                      for times in (u8["columns_s"], u8["small_s"])
+                      for k, v in times.items()))
 
     # phase 6 and 7 results, one line each, with the card
     for at in ("64 MiB", "1 GiB"):
@@ -1718,6 +2123,9 @@ def main() -> int:
         ("widestore_probe4.concat_mm", "cuda", "probe_concatmm.cu",
          "tools/widestore_probe4.py:40", "probe_concat_mm", _sum(l_ws4),
          "widestore_probe4.concat_mm"),
+        ("validate_utf8_device", "cuda", "utf8.cu",
+         "csv_simd_tpu/ops/utf8.py:97", "utf8_errs", u8["launches"],
+         "utf8_errs"),
     )
     # the input bytes each kernel's `ms` was timed on
     gib, blk_words = padded_rows(size) * ROW_BYTES, BLOCK_BYTES
@@ -1734,6 +2142,9 @@ def main() -> int:
              **{f"mosaic_probes.{probe}": mosaic_bytes[kernel]
                 for probe, kernel in mosaic_probes.PROBE_KERNEL.items()}}
     bound = bounds(timed, hi)
+    # the validator's work depends on its data: its own count, at 64 MiB
+    bound["utf8_errs"] = u8["bound"]
+    ms["utf8_errs"], ms["utf8_errs_plain"] = u8["ms"], u8["plain_ms"]
     kernels = [
         {"name": name, "route": route_, "source": src + source,
          "replaces": replaces, "launches": launches[counter],

@@ -3,8 +3,11 @@
 Two paths are ported. The offsets-free path: `create_packed(path)`
 builds the index on an NVIDIA card with two hand-written Hopper kernels
 (the stage-1 build, csrc/stage1_v4.cu, and the row popcount prefix,
-csrc/prefix.cu), and `PackedDeviceTape` serves batched field lookups and
-typed columns from it. The offsets route: `create(path)` builds the
+csrc/prefix.cu), with `validate_utf8=True` checks non-ASCII input with
+a third (the UTF-8 validator, csrc/utf8.cu), and `PackedDeviceTape`
+serves batched field lookups, typed columns (int32, float32 with and
+without exponents, exact decimals, dates, datetimes), decoded fields and
+equality filters from it. The offsets route: `create(path)` builds the
 fold-layout words with kernel B3 (the stage-1 build's one pass, then
 csrc/relayout.cu `fold_words`), copies them to
 the host and extracts the offsets there into a `Tape`, which
@@ -13,8 +16,8 @@ same chunk by chunk. Every function takes an explicit device; the
 default is "cuda", and device="cpu" runs the plain PyTorch versions of
 the kernels. The package imports torch and never jax or csv_simd_tpu:
 it keeps its own copies of the JAX package's pure-host modules (config,
-errors, utils, serve, tape, artifact, golden and the native C++ engine,
-which g++ builds into `_build/` at first use).
+errors, utils, serve, tape, artifact, golden, decode and the native C++
+engine, which g++ builds into `_build/` at first use).
 """
 
 from .api import create, create_from_bytes, create_packed
@@ -29,6 +32,7 @@ from .config import (
     Dialect,
     build_nibble_luts,
 )
+from .decode import DecodedView, decode_field, decode_str
 from .device_tape import DeviceTape
 from .errors import (
     InvalidCsvFormat,
@@ -58,6 +62,9 @@ __all__ = [
     "create_streaming",
     "DeviceTape",
     "PackedDeviceTape",
+    "DecodedView",
+    "decode_field",
+    "decode_str",
     "save_tape",
     "load_tape",
     "Dialect",

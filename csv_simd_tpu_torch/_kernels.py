@@ -47,7 +47,7 @@ LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
             "probe_ws_packmm": 0, "probe_mosaic_mm32": 0,
             "probe_mosaic_gather": 0, "probe_mosaic_cmp8": 0,
             "probe_mosaic_select8": 0, "probe_mosaic_shift_add": 0,
-            "probe_mosaic_usum": 0, "probe_concat_mm": 0}
+            "probe_mosaic_usum": 0, "probe_concat_mm": 0, "utf8_errs": 0}
 _lib = None
 _alu_op_counts = None
 _alu_const_arrays = {}
@@ -194,6 +194,8 @@ def _library():
         lib.csv_probe_mosaic_usum.restype = i
         lib.csv_probe_concat_mm.argtypes = [vp, ll, vp, vp, i, vp]
         lib.csv_probe_concat_mm.restype = i
+        lib.csv_utf8_errs.argtypes = [vp, ll, vp, vp]
+        lib.csv_utf8_errs.restype = i
         lib.csv_cuda_error_string.argtypes = [i]
         lib.csv_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -482,6 +484,25 @@ def row_prefix(packed: torch.Tensor) -> torch.Tensor:
     _raise_on(err, "row_prefix")
     LAUNCHES["row_prefix"] += 1
     return out
+
+
+def utf8_errs(data: torch.Tensor) -> torch.Tensor:
+    """The UTF-8 validator (csrc/utf8.cu) on CUDA uint8 bytes (any shape,
+    contiguous, 16-byte aligned, at least one byte) -> 0-d int64 count of
+    the errors `ops.utf8._utf8_errs_plain` counts: 0 iff the bytes are
+    valid UTF-8."""
+    _check_words(data, "utf8_errs", torch.uint8)
+    n = data.numel()
+    if n == 0:
+        raise ValueError("utf8_errs: no bytes")
+    dev = data.device
+    with torch.cuda.device(dev):
+        count = torch.empty((), dtype=torch.int64, device=dev)
+        err = _library().csv_utf8_errs(data.data_ptr(), n, count.data_ptr(),
+                                       _stream(dev))
+    _raise_on(err, "utf8_errs")
+    LAUNCHES["utf8_errs"] += 1
+    return count
 
 
 # modes of csrc/probe_stream.cu's write kernel and csrc/probe_ablate.cu

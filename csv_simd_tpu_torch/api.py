@@ -16,15 +16,11 @@ import os
 import numpy as np
 
 from .config import DEFAULT_DIALECT
-from .errors import IoError
+from .device import resolve_device
+from .errors import InvalidCsvFormat, IoError
 from .offsetfree import PackedDeviceTape
 from .tape import Header, Tape
 from .utils import as_u8
-
-_UTF8_MSG = (
-    "validate_utf8 on input with bytes >= 0x80 needs the UTF-8 validator, "
-    "which is not ported yet (ROADMAP A7)"
-)
 
 
 def _map(filename) -> np.ndarray:
@@ -54,14 +50,27 @@ def _build_index(data, dialect, backend: str, device):
                            device=device)
 
 
+def _check_utf8(data, device) -> None:
+    """Raise InvalidCsvFormat unless `data` is valid UTF-8. On a CUDA
+    device the bytes are uploaded and the validator kernel counts the
+    errors (ops/utf8.py); otherwise the host check runs."""
+    from .ops import utf8
+
+    arr = as_u8(data)
+    on_card = resolve_device(device).type == "cuda"
+    ok = (utf8.validate_utf8_device(arr, device) if on_card and arr.size
+          else utf8.validate_utf8(arr))
+    if not ok:
+        raise InvalidCsvFormat("input is not valid UTF-8")
+
+
 def create_from_bytes(data, dialect=None, backend: str = "auto",
                       validate_utf8: bool = False, device="cuda") -> Tape:
     """Build a Tape from an in-memory byte buffer. validate_utf8=True
-    passes ASCII input and raises NotImplementedError for input with a
-    byte >= 0x80 (the UTF-8 validator is not ported yet)."""
+    gates the build on full UTF-8 validity, raising InvalidCsvFormat."""
     dialect = dialect or DEFAULT_DIALECT
-    if validate_utf8 and bool((as_u8(data) >= 0x80).any()):
-        raise NotImplementedError(_UTF8_MSG)
+    if validate_utf8:
+        _check_utf8(data, device)
     header = Header.parse(data, delimiter=dialect.delimiter,
                           quote_aware=dialect.header_quotes,
                           quote=dialect.quote)
@@ -76,7 +85,10 @@ def create_packed(filename: str | os.PathLike, dialect=None,
     one padded copy into pinned memory and onto the device, kernel B1
     (build) and kernel B2 (row prefix). The index is the packed bitmask
     and the row popcount prefix, never an offsets array. `device="cpu"`
-    runs the plain PyTorch versions instead of the kernels."""
+    runs the plain PyTorch versions instead of the kernels. With
+    validate_utf8=True, input in which B1 counted a byte >= 0x80 is
+    checked by the UTF-8 validator kernel on the bytes already on the
+    card, and raises InvalidCsvFormat if it is not valid UTF-8."""
     return PackedDeviceTape(_map(filename), dialect or DEFAULT_DIALECT,
                             validate_utf8=validate_utf8, device=device)
 

@@ -174,10 +174,13 @@ class PackedDeviceTape(TypedColumnsMixin):
         self.words = packed
         self.cum_incl = prefix_for_packed(packed)
         self.data = padded[: arr.size]
+        # only input in which the build counted a byte >= 0x80 pays for the
+        # validator, which reads the bytes already on the device
         if validate_utf8 and int(na):
-            raise NotImplementedError(
-                "validate_utf8 on input with bytes >= 0x80 needs the device "
-                "UTF-8 validator, which is not ported yet (ROADMAP A7)")
+            from .ops.utf8 import validate_utf8_device
+
+            if not validate_utf8_device(self.data):
+                raise InvalidCsvFormat("input is not valid UTF-8")
         self._set_stride()
 
     def _set_stride(self) -> None:

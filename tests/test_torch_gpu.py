@@ -1051,3 +1051,209 @@ def test_v2_pack_graph_replays(cuda_device):
             g.zero_()
         graph.replay()
         _same(got, want)
+
+
+# -- the UTF-8 validator (csrc/utf8.cu) and the typed columns on the card --
+
+UTF8_CASES = [
+    b"hello", "héllo wörld ©®™".encode(), "日本語テキスト𝄞".encode(),
+    "emoji \U0001f389".encode(), b"\xed\x9f\xbf", b"\xee\x80\x80",
+    b"\xf4\x8f\xbf\xbf", b"\x80", b"\xbf", b"\x80\x80", b"\xc0\x80",
+    b"\xc1\xbf", b"\xe0\x80\x80", b"\xe0\x9f\xbf", b"\xed\xa0\x80",
+    b"\xf0\x80\x80\x80", b"\xf0\x8f\xbf\xbf", b"\xf4\x90\x80\x80",
+    b"\xf5\x80\x80\x80", b"\xe2\x82", b"\xf0\x9f\x98", b"a\xc3", b"ok\xff",
+    b"\xfe", b"\xff\xfe bad", b"ok \xc3\x28 overlong-ish", b"trunc \xe6\x97",
+    "edge߿ࠀ￿".encode() + "\U0010FFFF".encode(),
+]
+_UTF8_CHARS = ["a", ",", "\n", "é", "ß", "日", "€", "😀", "\U0010FFFF"]
+_UTF8_BAD = [b"\x80", b"\xbf", b"\xff", b"\xf5", b"\xc0\x80", b"\xe6\x97",
+             b"\xf0\x9f\x98", b"\xed\xa0\x80", b"\xe0\x80\x80",
+             b"\xf4\x90\x80\x80", b"\xc3"]
+
+
+def _utf8_text(n_bytes: int, seed: int, bad_rate: float) -> np.ndarray:
+    """n_bytes of 1-4 byte characters, with bad byte runs at bad_rate."""
+    rng = np.random.default_rng(seed)
+    out, size = [], 0
+    while size < n_bytes:
+        if rng.random() < bad_rate:
+            piece = _UTF8_BAD[rng.integers(len(_UTF8_BAD))]
+        else:
+            piece = _UTF8_CHARS[rng.integers(len(_UTF8_CHARS))].encode()
+        out.append(piece)
+        size += len(piece)
+    return np.frombuffer(b"".join(out)[:n_bytes], dtype=np.uint8).copy()
+
+
+def _utf8_pair(cuda_device, arr: np.ndarray) -> tuple:
+    """(kernel count, plain count on the CPU) of the same bytes."""
+    from csv_simd_tpu_torch.ops.utf8 import _utf8_errs_plain
+
+    got = _kernels.utf8_errs(torch.from_numpy(arr).to(cuda_device))
+    return int(got), _utf8_errs_plain(torch.from_numpy(arr))
+
+
+@pytest.mark.gpu
+def test_utf8_kernel_matches_plain_on_the_cpu_cases(cuda_device):
+    """The kernel's count == the plain version's, and 0 iff Python
+    decodes the bytes, on the CPU tests' cases and random mixed text."""
+    cases = [np.frombuffer(c, dtype=np.uint8).copy() for c in UTF8_CASES]
+    cases += [_utf8_text(n, n, 0.08) for n in (9, 17, 100, 255, 513, 4096)]
+    for arr in cases:
+        before = _kernels.launch_counts()["utf8_errs"]
+        got, want = _utf8_pair(cuda_device, arr)
+        assert _kernels.launch_counts()["utf8_errs"] == before + 1
+        assert got == want, arr.tobytes()[:40]
+        try:
+            arr.tobytes().decode("utf-8")
+            valid = True
+        except UnicodeDecodeError:
+            valid = False
+        assert (got == 0) == valid
+
+
+@pytest.mark.gpu
+def test_utf8_kernel_at_chunk_warp_and_block_edges(cuda_device):
+    """A bad byte, a valid 3-byte character and a cut one at every offset
+    0-19 around each 16-byte chunk, warp half (512 bytes), warp (1 KiB),
+    block (8 KiB) and grid step edge of the kernel's loop."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for edge in (16, 512, 1024, 8192, 4 * sms * 8192):
+        base = _utf8_text(edge + 64, edge, 0.0)
+        base[base >= 0x80] = ord("x")  # ASCII around the edge
+        for off in range(20):
+            p = edge - 10 + off
+            for piece in (b"\xff", b"\xe6\x97\xa5", b"\xe6\x97", b"\xc3\xa9",
+                          b"\xf0\x9f\x98\x80", b"\xed\xa0\x80"):
+                arr = base.copy()
+                arr[p:p + len(piece)] = np.frombuffer(piece, np.uint8)
+                got, want = _utf8_pair(cuda_device, arr)
+                assert got == want, (edge, off, piece)
+                assert (got == 0) == (piece in (b"\xe6\x97\xa5", b"\xc3\xa9",
+                                                b"\xf0\x9f\x98\x80"))
+
+
+@pytest.mark.gpu
+def test_utf8_kernel_lengths_1_to_4097(cuda_device):
+    """Every length 1-4,097 (the ragged last chunk and the end's cut
+    sequences), prefixes of one buffer of dense multi-byte text."""
+    arr = _utf8_text(4097, 7, 0.02)
+    full = torch.from_numpy(arr).to(cuda_device)
+    from csv_simd_tpu_torch.ops.utf8 import _utf8_errs_plain
+
+    got = torch.stack([_kernels.utf8_errs(full[:n])
+                       for n in range(1, 4098)]).cpu()
+    host = torch.from_numpy(arr)
+    want = [_utf8_errs_plain(host[:n]) for n in range(1, 4098)]
+    assert got.tolist() == want
+
+
+@pytest.mark.gpu
+def test_utf8_kernel_large_and_rejects(cuda_device):
+    """64 MiB of mixed text against the plain version on the card; the
+    wrapper refuses CPU, non-uint8, unaligned and empty input, and
+    validate_utf8_device copies an unaligned view first."""
+    from csv_simd_tpu_torch.ops.utf8 import _utf8_errs_plain, validate_utf8_device
+
+    arr = np.tile(_utf8_text(1 << 20, 3, 0.0001), 64)
+    t = torch.from_numpy(arr).to(cuda_device)
+    assert int(_kernels.utf8_errs(t)) == _utf8_errs_plain(t) > 0
+    with pytest.raises(ValueError):
+        _kernels.utf8_errs(t.cpu())
+    with pytest.raises(ValueError):
+        _kernels.utf8_errs(t[:64].view(torch.int8))
+    with pytest.raises(ValueError):
+        _kernels.utf8_errs(t[1:])
+    with pytest.raises(ValueError):
+        _kernels.utf8_errs(t[:0])
+    ok = torch.from_numpy(np.frombuffer(b"x" + "héllo".encode(),
+                                        np.uint8).copy()).to(cuda_device)
+    assert validate_utf8_device(ok[1:]) and not validate_utf8_device(ok[3:])
+
+
+@pytest.mark.gpu
+def test_utf8_routing_launches(cuda_device, tmp_path):
+    """create_packed(validate_utf8=True) launches the validator only on
+    input with a byte >= 0x80; create_from_bytes always does on a card;
+    invalid input raises InvalidCsvFormat either way."""
+    ascii_path = tmp_path / "a.csv"
+    ascii_path.write_bytes(b"a,b\n1,2\n")
+    text_path = tmp_path / "t.csv"
+    text_path.write_bytes("a,b\né,2\n".encode())
+    bad_path = tmp_path / "b.csv"
+    bad_path.write_bytes(b"a,b\n\xff,2\n")
+    for path, launches in ((ascii_path, 0), (text_path, 1)):
+        _kernels.reset_launch_counts()
+        tape = create_packed(str(path), validate_utf8=True)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts()["utf8_errs"] == launches
+        assert tape.num_data_records == 1
+    with pytest.raises(ct.InvalidCsvFormat, match="UTF-8"):
+        create_packed(str(bad_path), validate_utf8=True)
+    _kernels.reset_launch_counts()
+    tape = ct.create_from_bytes("a,b\né,2\n".encode(), validate_utf8=True,
+                                backend="native")
+    assert _kernels.launch_counts()["utf8_errs"] == 1
+    assert tape.seek_field(0, 0) == "é".encode()
+    with pytest.raises(ct.InvalidCsvFormat, match="UTF-8"):
+        ct.create_from_bytes(b"a,b\n1,\xe6\x97\n", validate_utf8=True,
+                             backend="native")
+
+
+def _typed_table() -> bytes:
+    rng = np.random.default_rng(17)
+    rows = ["id,dec,exp,date,ts,txt"]
+    for i in range(3000):
+        day = int(rng.integers(-20000, 40000))
+        d = np.datetime64(day, "D")
+        ts = np.datetime64(int(rng.integers(-10**9, 3 * 10**9)) * 1000
+                           + int(rng.integers(0, 1000)), "ms")
+        txt = rng.choice(['plain', '" pad "', '"say ""hi"""', "  x  ", '""'])
+        rows.append(f"{i},{rng.integers(-10**6, 10**6)}.{i % 100:02d},"
+                    f"{rng.integers(1, 10**6)}e{rng.integers(-50, 50)},"
+                    f"{d},{str(ts).replace('T', ' ')},{txt}")
+    rows.append("x,1.234,1e,2023-02-29,2024-01-02 24:00:00,\"a\"b")
+    return ("\n".join(rows) + "\n").encode()
+
+
+@pytest.mark.gpu
+def test_typed_columns_on_the_card_match_the_cpu(cuda_device):
+    """Each new column of both tapes on the card == the same call with
+    device="cpu", bit for bit (floats as int32)."""
+    data = _typed_table()
+    tapes = (
+        (PackedDeviceTape(data), PackedDeviceTape(data, device="cpu")),
+        (ct.DeviceTape.from_tape(ct.create_from_bytes(data, backend="native",
+                                                      device="cpu")),
+         ct.DeviceTape.from_tape(ct.create_from_bytes(data, backend="native",
+                                                      device="cpu"),
+                                 device="cpu")),
+    )
+    recs = np.array([5, 3000, 0, 17, 2999, 3001, -1], np.int32)
+    calls = (
+        ("column_decimal64", (1,), {}), ("column_decimal64", (1,),
+                                          {"scale": 3, "records": recs}),
+        ("column_float32_exp", (2,), {}), ("column_float32", (1,), {}),
+        ("column_date_days", (3,), {}),
+        ("column_datetime64", (4,), {"unit": "ms"}),
+        ("column_datetime64", (4,), {"unit": "us", "records": recs}),
+        ("filter_equals", (5, b'"say ""hi"""'), {}),
+        ("filter_equals", (0, b"17"), {"records": recs}),
+        ("gather_decoded", (recs.clip(0, 3000), np.full(7, 5)), {}),
+        ("column_decoded", (5,), {}),
+    )
+    for card, cpu in tapes:
+        for name, args, kw in calls:
+            got = getattr(card, name)(*args, **kw)
+            want = getattr(cpu, name)(*args, **kw)
+            for g, w in (zip(got, want) if isinstance(got, tuple)
+                         else [(got, want)]):
+                if isinstance(w, list):
+                    assert g == w, name
+                    continue
+                g = g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+                w = w.numpy() if isinstance(w, torch.Tensor) else w
+                assert g.dtype == w.dtype, name
+                if w.dtype == np.float32:
+                    g, w = g.view(np.int32), w.view(np.int32)
+                assert np.array_equal(g, w), name

@@ -147,9 +147,18 @@ def test_validate_utf8(tmp_path):
     path.write_bytes(b"a,b\n1,2\n")
     assert ct.create(str(path), validate_utf8=True, backend="torch",
                      device="cpu").record_cnt == 2
-    with pytest.raises(NotImplementedError, match="A7"):
-        ct.create_from_bytes("a,b\né,2\n".encode(), validate_utf8=True,
-                             backend="torch", device="cpu")
+    good = "a,b\né,2\n".encode()
+    tape = ct.create_from_bytes(good, validate_utf8=True, backend="torch",
+                                device="cpu")
+    assert tape.seek_field(0, 0) == csv_simd_tpu.create_from_bytes(
+        good, backend="jnp", validate_utf8=True).seek_field(0, 0)
+    for bad in (b"a,b\n\xff,2\n", b"a,b\n1,\xe6\x97\n"):
+        with pytest.raises(csv_simd_tpu.InvalidCsvFormat, match="UTF-8"):
+            csv_simd_tpu.create_from_bytes(bad, backend="jnp",
+                                           validate_utf8=True)
+        with pytest.raises(ct.InvalidCsvFormat, match="UTF-8"):
+            ct.create_from_bytes(bad, validate_utf8=True, backend="torch",
+                                 device="cpu")
 
 
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])

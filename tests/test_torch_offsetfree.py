@@ -212,9 +212,13 @@ def test_validate_utf8_fast_path():
     pt = PackedDeviceTape(b"a,b\n1,2\n", validate_utf8=True, device="cpu")
     assert int(pt.nonascii_count) == 0
     assert pt.num_data_records == 1
-    with pytest.raises(NotImplementedError, match="A7"):
-        PackedDeviceTape("a,b\né,2\n".encode(), validate_utf8=True,
-                         device="cpu")
+    # a byte >= 0x80 sends the bytes through the validator's plain version
+    pt = PackedDeviceTape("a,b\né,2\n".encode(), validate_utf8=True,
+                          device="cpu")
+    assert int(pt.nonascii_count) == 2
+    assert pt.num_data_records == 1
+    with pytest.raises(InvalidCsvFormat, match="UTF-8"):
+        PackedDeviceTape(b"a,b\n\xff,2\n", validate_utf8=True, device="cpu")
 
 
 def test_artifact_port_to_jax(tmp_path):
