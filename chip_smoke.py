@@ -107,8 +107,8 @@ Phases, each of which fails the run on any error:
    `fold_words`). Neither trace may name a kernel of the two-pass carry
    (`chunk_parity`, `chunk_carry_scan`, `pack_v2`, `row_parity`): no
    kernel of the port reads its input twice.
-8. the UTF-8 and typed-column path, last, so that the other paths run in
-   the state they would have without it: the validator kernel
+8. the UTF-8 and typed-column path, after the traces, so that the other
+   paths run in the state they would have without it: the validator kernel
    (csrc/utf8.cu) against its plain version on edge cases, every length
    1-600, bad bytes around its chunk, warp, block and grid-step edges,
    64 MiB of CJK text and 64 MiB of the non-ASCII table (the 1 GiB table
@@ -125,6 +125,21 @@ Phases, each of which fails the run on any error:
    1 GiB of the ASCII table and of CJK text, its plain version at 64
    MiB), the warm builds with and without it, and each column's warm
    time.
+9. the relational layer, last, after phase 8: column_stats (int exact,
+   a float spec within rtol 1e-5 of the host's float64 sum),
+   column_quantiles, describe, select_records (an int compare and a
+   LIKE), order_records both ways, groupby_typed and group_aggregate on
+   the row id, join_records and join_typed of the 1 GiB table with its
+   64 MiB block, each on the create_packed tape (B1 + B2) and on the
+   create + DeviceTape tape (B3), and held against the truth from the
+   block's golden fields, tiled; each run once under a dispatch watch
+   that fails if a step left a large tensor on the CPU; value_counts,
+   distinct and groupby_typed on the text field f3 and the
+   read_typed -> write_csv -> read_typed round trip on the block; a
+   CsvCorpus of 16 files of the block (column_stats, column_quantiles by
+   the rank bisection, order_records through the corpus tape); each
+   operation's warm median of 3; a torch.profiler trace of a warm
+   groupby_typed and order_records (busy share, top device ops).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -1404,6 +1419,340 @@ def run_utf8_typed_path(gate: Gate, device, block: bytes, index: np.ndarray,
     return out
 
 
+REL_QS = (0.01, 0.5, 0.99)
+REL_LIKE = "%comma 12%"
+WATCH_ELEMS = 4096  # a CPU tensor larger than this in a device op fails
+
+
+def device_watch():
+    """A TorchDispatchMode that counts the aten ops whose outputs lie on
+    the card and records every op that leaves a tensor of more than
+    WATCH_ELEMS elements on the CPU, other than a copy between devices,
+    host data entering torch or an alias of a host copy (`.numpy()`
+    detaches it): a step of the relational layer that ran on the host."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    crossing = {"_to_copy", "copy_", "lift_fresh", "detach", "alias"}
+
+    class Watch(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.cuda_ops = 0
+            self.cpu_ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            for t in tree_flatten(out)[0]:
+                if not isinstance(t, torch.Tensor):
+                    continue
+                if t.device.type == "cuda":
+                    self.cuda_ops += 1
+                elif t.numel() > WATCH_ELEMS and name not in crossing:
+                    self.cpu_ops.append((name, tuple(t.shape)))
+            return out
+
+    return Watch()
+
+
+def on_card(what: str, fn):
+    """fn() once under device_watch: fails if it ran no op on the card or
+    left a large tensor on the CPU; returns fn's result."""
+    with device_watch() as w:
+        out = fn()
+    if w.cuda_ops == 0 or w.cpu_ops:
+        raise AssertionError(f"{what}: {w.cuda_ops} ops on the card, on the "
+                             f"CPU {w.cpu_ops[:5]}")
+    return out
+
+
+def median_s(fn, reps: int = 3) -> float:
+    """The median host seconds of `reps` warm calls, each ended by a
+    sync (fn ran once before, under on_card)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out))
+
+
+def relational_truth(block: bytes, index: np.ndarray, per_block: int) -> dict:
+    """The host's truth for phase 9 from the 64 MiB block's golden
+    fields: the int fields f1, f2 and f4 (int64), f2 as the float parse
+    gives it (float32), f3 decoded, as str; the quantiles of the tiled
+    int fields and the stable orders of the tiled f2, computed once for
+    both tapes and the corpus."""
+    from csv_simd_tpu_torch import decode_field
+
+    arr = np.frombuffer(block, np.uint8)
+    out = {f"f{k}": np.array(block_fields(arr, index, per_block, k))
+           .astype(np.int64) for k in (1, 2, 4)}
+    out["f2_float"] = fma_float32(block_fields(arr, index, per_block, 2))
+    out["f3"] = np.array([decode_field(v).decode() for v in
+                          block_fields(arr, index, per_block, 3)], object)
+    for k in ("f1", "f2", "f4"):
+        tiled = np.tile(out[k], REPEATS)
+        out[f"{k}_q"] = np.quantile(tiled, (0.25, 0.5, 0.75))
+        if k == "f2":
+            out["f2_qs"] = np.quantile(tiled, REL_QS)
+            out["f2_order"] = np.argsort(tiled, kind="stable")
+            out["f2_order_desc"] = np.argsort(-tiled, kind="stable")
+    return out
+
+
+def same_array(what: str, got, want) -> None:
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what}: {np.asarray(got)[:8]} != "
+                             f"{np.asarray(want)[:8]}")
+
+
+def check_stats(st, vals: np.ndarray, what: str) -> None:
+    """Stats of an int column against the tiled block: all exact."""
+    n = REPEATS * vals.size
+    want = (n, n, REPEATS * int(vals.sum()), int(vals.min()), int(vals.max()))
+    got = (st.count, st.ok_count, st.sum, st.min, st.max)
+    if got != want:
+        raise AssertionError(f"{what}: {got} != {want}")
+
+
+def check_relational(ct, t, bt, truth: dict, per_block: int,
+                     what: str, times: dict) -> None:
+    """Every phase-9 operation on the 1 GiB tape `t` (and the join with
+    the 64 MiB block's tape `bt`) once under on_card, held against the
+    truth, then its warm median added to `times`."""
+    n = REPEATS * per_block
+    ids = np.arange(n)
+    tile = lambda a: np.tile(a, REPEATS)  # noqa: E731
+    f1, f2, f4 = truth["f1"], truth["f2"], truth["f4"]
+
+    def run(name, fn, check):
+        check(on_card(f"{what} {name}", fn))
+        times[name] = median_s(fn)
+
+    def stats_float(st):
+        v = truth["f2_float"].astype(np.float64)
+        ok = (st.count == st.ok_count == n
+              and st.min == float(v.min()) and st.max == float(v.max())
+              and abs(st.sum / (REPEATS * v.sum()) - 1) < 1e-5
+              and abs(st.sum_sq / (REPEATS * (v * v).sum()) - 1) < 1e-5)
+        if not ok:
+            raise AssertionError(f"{what} float stats of f2: {st}")
+
+    def equal(name, want):
+        return lambda got: same_array(f"{what} {name}", got, want)
+
+    def described(got):
+        for name, vals in (("f1", f1), ("f2", f2), ("f4", f4)):
+            check_stats(got[name]["stats"], vals, f"{what} describe {name}")
+            equal(f"describe {name} quantiles",
+                  truth[f"{name}_q"])(got[name]["quantiles"])
+
+    def grouped(g):
+        equal("group keys", np.arange(per_block, dtype=np.int32))(g["keys"])
+        equal("group counts", np.full(per_block, REPEATS))(g["count"])
+        equal("group sums", REPEATS * f1)(g["sum"])
+        equal("group min", f1.astype(np.int32))(g["min"])
+        equal("group max", f1.astype(np.int32))(g["max"])
+
+    def aggregate():
+        k, kok = t.column_int32(0)
+        v, vok = t.column_int32(1)
+        return ct.group_aggregate(k, v, kok, vok)
+
+    def joined(frame):
+        equal("join_typed records", ids)(frame.records)
+        equal("join_typed f0", tile(np.arange(per_block)))(frame["f0"])
+        equal("join_typed f1", tile(f1))(frame["f1"])
+        equal("join_typed f2", tile(f2))(frame["f2"])
+
+    like = np.array(["comma 12" in s for s in truth["f3"]])
+    run("column_stats(f1)", lambda: ct.column_stats(t, "f1"),
+        lambda st: check_stats(st, f1, f"{what} column_stats(f1)"))
+    run("column_stats(f2, float)", lambda: ct.column_stats(t, "f2", "float"),
+        stats_float)
+    run("column_quantiles(f2)", lambda: ct.column_quantiles(t, "f2", REL_QS),
+        equal("column_quantiles", truth["f2_qs"]))
+    run("describe(f1, f2, f4)", lambda: ct.describe(t, ["f1", "f2", "f4"]),
+        described)
+    run("select_records", lambda: ct.select_records(
+        t, [("f1", "<", 500_000_000), ("f3", "like", REL_LIKE)]),
+        equal("select_records", np.flatnonzero(tile((f1 < 500_000_000)
+                                                    & like))))
+    run("order_records(f2)", lambda: ct.order_records(t, "f2"),
+        equal("order_records", truth["f2_order"]))
+    run("order_records(f2, desc)",
+        lambda: ct.order_records(t, "f2", descending=True),
+        equal("order_records desc", truth["f2_order_desc"]))
+    run("groupby_typed(f0, f1)", lambda: ct.groupby_typed(t, "f0", "f1"),
+        grouped)
+    run("group_aggregate(f0, f1)", aggregate, grouped)
+    run("join_records(f0)", lambda: ct.join_records(t, bt, "f0"),
+        lambda p: (equal("join left ids", ids)(p[0]),
+                   equal("join right ids", ids % per_block)(p[1])))
+    run("join_typed(f0)", lambda: ct.join_typed(
+        t, bt, "f0", columns=["f0", "f1"], right_columns=["f2"]), joined)
+
+
+def run_relational_path(device, block: bytes, index: np.ndarray,
+                        per_block: int, path: str) -> dict:
+    """Phase 9: the relational layer on the 1 GiB table through both
+    engines, the text keys and the CSV round trip on the 64 MiB block, and
+    a CsvCorpus of 16 files of the block, each result held against the
+    host's truth from the block's golden fields; the warm times; a trace
+    of a warm groupby_typed and order_records on the packed tape."""
+    import csv_simd_tpu_torch as ct
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    truth = relational_truth(block, index, per_block)
+    n = REPEATS * per_block
+    out = {"times": {}, "offsets_times": {}, "text_times": {}}
+    block_path = os.path.join(tempfile.gettempdir(),
+                              "csv_simd_torch_smoke_block.csv")
+    with open(block_path, "wb") as f:
+        f.write(block)
+
+    # the path: the entry points build their tapes from the file, with
+    # the launch counts set to 0 just before
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    check_stats(ct.column_stats(path, "f1", engine="packed", device=device),
+                truth["f1"], "column_stats(path, packed)")
+    check_stats(ct.column_stats(path, "f1", engine="offsets", device=device),
+                truth["f1"], "column_stats(path, offsets)")
+    packed = ct.create_packed(path, device=device)
+    offsets = ct.DeviceTape.from_tape(
+        ct.create(path, backend="cuda", device=device), device=device)
+    bpacked = ct.create_packed(block_path, device=device)
+    boffsets = ct.DeviceTape.from_tape(
+        ct.create(block_path, backend="cuda", device=device), device=device)
+    torch.cuda.synchronize()
+    out["launches"] = _kernels.launch_counts()
+    out["build_s"] = time.perf_counter() - t0
+    for name in ("stage1_v4", "row_prefix", "stage1_fold"):
+        need(out["launches"], name, 1, "phase 9's tapes")
+
+    check_relational(ct, packed, bpacked, truth, per_block, "packed",
+                     out["times"])
+    check_relational(ct, offsets, boffsets, truth, per_block, "offsets",
+                     out["offsets_times"])
+    del offsets, boffsets
+
+    # text keys on the 64 MiB block: the reference factorizes them on
+    # the host, one Python bytes a row
+    keys, counts = np.unique(truth["f3"], return_counts=True)
+    sums = np.zeros(keys.size, np.int64)
+    np.add.at(sums, np.searchsorted(keys, truth["f3"]), truth["f1"])
+
+    def counted(name, g):
+        same_array(f"{name} keys", g["keys"], keys)
+        same_array(f"{name} counts", g["count"], counts)
+
+    text_ops = {
+        "value_counts(f3)": (lambda: ct.value_counts(bpacked, "f3"),
+                             lambda g: counted("value_counts(f3)", g)),
+        "distinct(f3)": (lambda: ct.distinct(bpacked, "f3"),
+                         lambda g: same_array("distinct(f3)", g, keys)),
+        "groupby_typed(f3, f1)": (
+            lambda: ct.groupby_typed(bpacked, "f3", "f1"),
+            lambda g: (counted("groupby_typed(f3, f1)", g),
+                       same_array("groupby_typed(f3, f1) sums", g["sum"],
+                                  sums))),
+    }
+    for name, (fn, check) in text_ops.items():
+        check(on_card(f"text {name}", fn))
+        out["text_times"][name] = median_s(fn)
+    out["text_keys"] = int(keys.size)
+
+    # read_typed, write_csv, read_typed again: an equal Frame. No float
+    # column: the fields hold up to 10 digits, and the float parse rounds
+    # once a digit (as the reference's does), so the shortest text of a
+    # float32 need not parse back to it
+    schema = {"f0": "int32", "f1": "int32", "f3": "str", "f4": "decimal:2"}
+    frame = on_card("read_typed", lambda: ct.read_typed(bpacked, schema))
+    blob = ct.write_csv(frame)
+    again = ct.read_typed(blob, schema, engine="packed", device=device)
+    for name in schema:
+        same_array(f"the CSV round trip of {name}", again[name], frame[name])
+        if frame.ok(name) is not None and not (
+                frame.ok(name).all() and again.ok(name).all()):
+            raise AssertionError(f"{name} does not parse in the round trip")
+    if not (np.array_equal(frame["f0"], np.arange(per_block))
+            and np.array_equal(frame["f4"], truth["f4"] * 100)
+            and again.names == frame.names and len(again) == per_block):
+        raise AssertionError("read_typed of the block differs from the host")
+    out["text_times"]["read_typed(4 columns)"] = median_s(
+        lambda: ct.read_typed(bpacked, schema))
+    out["text_times"]["write_csv(4 columns)"] = median_s(
+        lambda: ct.write_csv(frame), 1)
+    del frame, again, blob
+
+    # a corpus of 16 files of the block: per-file statistics and the
+    # rank bisection over the files' device buffers, ORDER BY through the
+    # corpus tape
+    parts = []
+    for i in range(REPEATS):
+        p = os.path.join(tempfile.gettempdir(),
+                         f"csv_simd_torch_smoke_part{i:02d}.csv")
+        with open(p, "wb") as f:
+            f.write(block)
+        parts.append(p)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    corpus = ct.CsvCorpus(parts, device=device)
+    corpus.serving_tape()  # the files' DeviceTapes, uploaded once
+    torch.cuda.synchronize()
+    out["corpus_build_s"] = time.perf_counter() - t0
+    out["corpus_launches"] = _kernels.launch_counts()
+    need(out["corpus_launches"], "stage1_fold", 1, "CsvCorpus")
+    corpus_ops = {
+        "corpus column_stats(f1)": (
+            lambda: ct.column_stats(corpus, "f1"),
+            lambda st: check_stats(st, truth["f1"], "corpus column_stats")),
+        "corpus column_quantiles(f2)": (
+            lambda: ct.column_quantiles(corpus, "f2", REL_QS),
+            lambda q: same_array("corpus column_quantiles", q,
+                                 truth["f2_qs"])),
+        "corpus order_records(f2)": (
+            lambda: ct.order_records(corpus.serving_tape(), "f2"),
+            lambda perm: same_array("corpus order_records", perm,
+                                    truth["f2_order"])),
+    }
+    for name, (fn, check) in corpus_ops.items():
+        check(on_card(name, fn))
+        out["times"][name] = median_s(fn)
+    if corpus.num_records != n:
+        raise AssertionError(f"corpus records {corpus.num_records}")
+    del corpus
+    for p in parts:
+        os.remove(p)
+
+    # where a column's time goes: a trace of a warm groupby_typed and a
+    # warm order_records on the packed tape
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profiling.device_trace(trace_dir):
+            with profiling.named("groupby_typed"):
+                ct.groupby_typed(packed, "f0", "f1")
+            with profiling.named("order_records"):
+                ct.order_records(packed, "f2")
+        per, busy = _device_ops(os.path.join(trace_dir,
+                                             profiling.TRACE_FILE))
+    out["trace_busy"] = busy
+    out["trace_top"] = sorted(per.items(), key=lambda kv: -kv[1][0])[:5]
+    out["trace_device_ms"] = sum(ms for ms, _ in per.values())
+    out["rows"] = n
+    out["phase_s"] = time.perf_counter() - t_phase
+    del packed, bpacked
+    os.remove(block_path)
+    torch.cuda.empty_cache()
+    return out
+
+
 def driven(fn, *args, **kw) -> tuple:
     """fn's result and the launch counts of its run alone."""
     from csv_simd_tpu_torch import _kernels
@@ -1917,8 +2266,8 @@ def main() -> int:
     no_two_pass(probe_ops, "the probe trace")
 
     # phase 8: UTF-8 validation (the validator kernel) and the typed and
-    # decoded columns, gated, then timed; last, so that the other paths'
-    # times are taken in the state the process had before it
+    # decoded columns, gated, then timed; after the traces, so that the
+    # other paths' times are taken in the state the process had before it
     u8 = run_utf8_typed_path(gate, device, block, index, per_block, path)
     print(f"create_packed(validate_utf8=True): non-ASCII 1 GiB table "
           f"launches {u8['launches']}, ASCII table {u8['launches_ascii']}; "
@@ -1928,6 +2277,18 @@ def main() -> int:
           f"filter_equals and gather_decoded at {u8['rows']} rows, "
           f"column_decoded at {per_block} rows and dates and datetimes at "
           f"{u8['date_rows']} rows equal to the host")
+
+    # phase 9: the relational layer (query, frame, corpus_api, join) on
+    # the 1 GiB table through both engines, gated against the block's
+    # truth, then timed; last, after phase 8
+    rel = run_relational_path(device, block, index, per_block, path)
+    print(f"relational layer: {rel['rows']} rows through create_packed "
+          f"(B1 + B2) and create + DeviceTape (B3), every result equal to the "
+          f"host's truth and computed on the card; tapes {rel['build_s']:.3f}"
+          f" s, launches {rel['launches']}; text keys ({rel['text_keys']} "
+          f"distinct) and the CSV round trip on the {per_block}-row block; "
+          f"CsvCorpus of {REPEATS} files in {rel['corpus_build_s']:.3f} s, "
+          f"launches {rel['corpus_launches']}; phase {rel['phase_s']:.1f} s")
 
     gb = padded_rows(size) * ROW_BYTES / 1e9
     print(f"times on {card}:")
@@ -1978,6 +2339,20 @@ def main() -> int:
           + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v)
                       for times in (u8["columns_s"], u8["small_s"])
                       for k, v in times.items()))
+
+    for label, times in (("packed tape", rel["times"]),
+                         ("offsets tape (DeviceTape)", rel["offsets_times"])):
+        print(f"relational ops on the {label} on {card} (warm s, median of "
+              f"3; {rel['rows']} rows): " + "; ".join(
+                  f"{k} {v:.4f}" for k, v in times.items()))
+    print(f"relational ops on the {per_block}-row block on {card} (warm s, "
+          "median of 3; write_csv one call): " + "; ".join(
+              f"{k} {v:.4f}" for k, v in rel["text_times"].items()))
+    print(f"trace of a warm groupby_typed + order_records at {rel['rows']} "
+          f"rows on {card}: device busy {rel['trace_busy']:.2%} of the traced "
+          f"window, {rel['trace_device_ms']:.3f} ms of device ops; top device "
+          "ops: " + "; ".join(f"{name[:100]} {t:.3f} ms x{k}"
+                              for name, (t, k) in rel["trace_top"]))
 
     # phase 6 and 7 results, one line each, with the card
     for at in ("64 MiB", "1 GiB"):

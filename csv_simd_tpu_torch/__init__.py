@@ -18,6 +18,12 @@ the kernels. The package imports torch and never jax or csv_simd_tpu:
 it keeps its own copies of the JAX package's pure-host modules (config,
 errors, utils, serve, tape, artifact, golden, decode and the native C++
 engine, which g++ builds into `_build/` at first use).
+
+The relational layer runs over any of those tapes with torch ops on the
+tape's device: `read_typed` -> `Frame` (frame.py), `CsvCorpus` over many
+files (corpus_api.py), filters, statistics, quantiles, ORDER BY and
+GROUP BY (query.py) and equi-joins (join.py). Its entry points that
+build a tape take `device="cuda"` as `create` does.
 """
 
 from .api import create, create_from_bytes, create_packed
@@ -33,6 +39,7 @@ from .config import (
     build_nibble_luts,
 )
 from .decode import DecodedView, decode_field, decode_str
+from .corpus_api import CorpusTape, CsvCorpus
 from .device_tape import DeviceTape
 from .errors import (
     InvalidCsvFormat,
@@ -41,8 +48,22 @@ from .errors import (
     MissingValue,
     StructureError,
 )
+from .frame import Col, Frame, infer_schema, read_typed, write_csv
 from .index import build_index, build_index_device
+from .join import join_records, join_typed
 from .offsetfree import PackedDeviceTape
+from .query import (
+    Stats,
+    column_quantiles,
+    column_stats,
+    describe,
+    distinct,
+    group_aggregate,
+    groupby_typed,
+    order_records,
+    select_records,
+    value_counts,
+)
 from .streaming import (
     StreamingIndexBuilder,
     build_index_streaming,
@@ -85,4 +106,23 @@ __all__ = [
     "MissingValue",
     "InvalidState",
     "InvalidCsvFormat",
+    "CsvCorpus",
+    "CorpusTape",
+    "Col",
+    "Frame",
+    "infer_schema",
+    "read_typed",
+    "write_csv",
+    "Stats",
+    "column_quantiles",
+    "column_stats",
+    "describe",
+    "distinct",
+    "group_aggregate",
+    "groupby_typed",
+    "join_records",
+    "join_typed",
+    "order_records",
+    "select_records",
+    "value_counts",
 ]

@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, bit for bit. Every test needs an NVIDIA card and skips without
-one. This file imports no JAX, so it also runs where JAX is absent:
+card, bit for bit, and the relational layer (query, frame, corpus_api,
+join) on the card against its own device="cpu" results. Every test needs
+an NVIDIA card and skips without one. This file imports no JAX, so it
+also runs where JAX is absent (and `relational_csv`, the seeded table of
+the CPU differential tests, lives here for that reason):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 """
@@ -27,6 +30,40 @@ from csv_simd_tpu_torch.ops.stage1_v4 import _stage1_v4_plain, stage1_fused_v4
 from corpus import all_cases, synthetic_wide_table
 
 DIALECTS = ({}, dict(delimiter=0x3B, quote=0x27), dict(quote=0xA2))
+
+_TEXT = ('AAPL', '"AA,PL"', '"say ""hi"""', 'ms_ft', '50%off', 'a\\b',
+         '', '  pad  ', 'MSFT', 'goog', '"x""y"', 'aapl', 'a_b%c')
+
+
+def relational_csv(seed: int, n: int = 300) -> bytes:
+    """A seeded table: id, an int key k (some empty or bad), an int value
+    v (int32 extremes among them), floats f (no exponent) and x (with
+    one), a decimal d, a date, a datetime ts, text s (quoted, escaped,
+    empty, LIKE metacharacters) and a small text key t."""
+    rng = np.random.default_rng(seed)
+    rows = ["id,k,v,f,x,d,day,ts,s,t"]
+    for i in range(n):
+        r = rng.random(9)
+        k = ("" if r[0] < 0.05 else "k?" if r[0] < 0.08
+             else str(int(rng.integers(-3, 6))))
+        v = ("" if r[1] < 0.04 else "x!" if r[1] < 0.07
+             else str(int(rng.choice([-2**31, 2**31 - 1])))
+             if r[1] < 0.1 else str(int(rng.integers(-10**6, 10**6))))
+        f = ("" if r[2] < 0.05 else "-0.0" if r[2] < 0.08
+             else f"{rng.uniform(-500, 500):.3f}")
+        x = ("" if r[3] < 0.05 else
+             f"{rng.uniform(1, 9):.2f}e{int(rng.integers(-5, 6))}")
+        d = ("" if r[4] < 0.05 else "1.234" if r[4] < 0.08
+             else f"{int(rng.integers(-10**5, 10**5))}.{int(rng.integers(0, 100)):02d}")
+        day = ("2023-02-29" if r[5] < 0.04 else
+               str(np.datetime64("2020-01-01") + int(rng.integers(0, 2000))))
+        ts = (str(np.datetime64("2021-03-04T05:06:07.000")
+                  + int(rng.integers(0, 10**9))).replace(
+                      "T", " " if r[6] < 0.5 else "T"))
+        s = _TEXT[int(rng.integers(0, len(_TEXT)))]
+        t = "abc"[int(rng.integers(0, 3))] if r[7] > 0.05 else ""
+        rows.append(f"{i},{k},{v},{f},{x},{d},{day},{ts},{s},{t}")
+    return ("\n".join(rows) + "\n").encode()
 
 
 @pytest.fixture
@@ -1257,3 +1294,149 @@ def test_typed_columns_on_the_card_match_the_cpu(cuda_device):
                 if w.dtype == np.float32:
                     g, w = g.view(np.int32), w.view(np.int32)
                 assert np.array_equal(g, w), name
+
+
+# ------------------------------------------------------- relational layer
+
+REL_SCHEMA = {"id": "int32", "k": "int32", "v": "int32", "f": "float32",
+              "x": "float", "d": "decimal:2", "day": "date",
+              "ts": "datetime:ms", "s": "str", "t": "str"}
+REL_RTOL = 1e-5
+
+
+def _alike(got, want, path="result"):
+    """got (card) == want (CPU): exact, float arrays and float sums of
+    Stats within rtol=1e-5 (the card adds in another order)."""
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), path
+        for k in want:
+            _alike(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _alike(g, w, f"{path}[{i}]")
+    elif isinstance(want, ct.Stats):
+        for f in ("count", "ok_count", "min", "max"):
+            assert getattr(got, f) == getattr(want, f), (path, f)
+        for f in ("sum", "sum_sq"):
+            g, w = getattr(got, f), getattr(want, f)
+            assert (g == pytest.approx(w, rel=REL_RTOL)
+                    if isinstance(w, float) else g == w), (path, f)
+    elif isinstance(want, ct.Frame):
+        assert got.names == want.names and len(got) == len(want), path
+        _alike(got.records, want.records, f"{path}.records")
+        for n in want.names:
+            _alike(got[n], want[n], f"{path}[{n}]")
+            _alike(got.ok(n), want.ok(n), f"{path}.ok({n})")
+    elif isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray), (path, type(got))
+        assert got.dtype == want.dtype and got.shape == want.shape, path
+        if want.dtype.kind == "f":
+            np.testing.assert_allclose(got, want, rtol=REL_RTOL,
+                                       err_msg=path)
+        elif want.dtype == object:
+            assert got.tolist() == want.tolist(), path
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert got == want or (got != got and want != want), (path, got,
+                                                              want)
+
+
+def _rel_calls(src):
+    """(name, thunk) for each public relational function on `src`."""
+    s = REL_SCHEMA
+    return [
+        ("column_stats int", lambda: ct.column_stats(src, "v", "int32")),
+        ("column_stats float", lambda: ct.column_stats(
+            src, "f", "float32", where=("k", ">", 0), schema=s)),
+        ("column_stats decimal", lambda: ct.column_stats(src, "d",
+                                                         "decimal:2")),
+        ("column_quantiles", lambda: ct.column_quantiles(
+            src, "x", (0.01, 0.5, 0.99), "float")),
+        ("describe", lambda: ct.describe(src, ["v", "f", "s"], schema=s)),
+        ("value_counts", lambda: ct.value_counts(src, "s", "str")),
+        ("distinct", lambda: ct.distinct(src, "k", "int32")),
+        ("groupby_typed", lambda: ct.groupby_typed(
+            src, ["t", "k"], ["v", "f"], key_spec=["str", "int32"],
+            value_spec=["int32", "float32"], having=("count", ">", 0))),
+        ("read_typed", lambda: ct.read_typed(
+            src, s, where=[("s", "like", "%a%"), ("v", "<", 0)],
+            order_by="f", descending=True)),
+        ("join_typed", lambda: ct.join_typed(
+            src, src, "k", how="left", schema=s, right_schema=s,
+            columns=["id", "v"], right_columns=["s"])),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["offsets", "packed"])
+def test_relational_layer_on_the_card_matches_the_cpu(cuda_device, engine):
+    """Each public relational function on a CUDA tape == the same call on
+    a device="cpu" tape of the same bytes."""
+    data = relational_csv(11)
+    from csv_simd_tpu_torch.frame import _resolve_tape
+    card, _ = _resolve_tape(data, None, "auto", engine, False, cuda_device)
+    cpu, names = _resolve_tape(data, None, "auto", engine, False, "cpu")
+    assert card.device.type == "cuda"
+    for (name, got), (_, want) in zip(_rel_calls(card), _rel_calls(cpu)):
+        _alike(got(), want(), name)
+    for by in ("v", "f", "d", "s", ["t", "day"]):
+        _alike(ct.order_records(card, by, schema=REL_SCHEMA, descending=True),
+               ct.order_records(cpu, by, schema=REL_SCHEMA, descending=True),
+               f"order_records({by})")
+    where = ("or", [("s", "like", "a_b%"), ("x", "between", (1.0, 100.0)),
+                    ("s", "in", ["AAPL", ""])])
+    _alike(ct.select_records(card, where, schema=REL_SCHEMA),
+           ct.select_records(cpu, where, schema=REL_SCHEMA), "select")
+    for how in ("inner", "outer", "semi", "anti"):
+        _alike(ct.join_records(card, card, ["t", "k"], how=how),
+               ct.join_records(cpu, cpu, ["t", "k"], how=how), how)
+        _alike(ct.join_records(card, card, "k", how=how, left_spec="int32",
+                               right_spec="int32"),
+               ct.join_records(cpu, cpu, "k", how=how, left_spec="int32",
+                               right_spec="int32"), how)
+    assert ct.write_csv(ct.read_typed(card, REL_SCHEMA)) == ct.write_csv(
+        ct.read_typed(cpu, REL_SCHEMA))
+    assert {n: repr(c) for n, c in ct.infer_schema(card, names).items()} \
+        == {n: repr(c) for n, c in ct.infer_schema(cpu, names).items()}
+    # the values and masks stay on the card
+    from csv_simd_tpu_torch import query
+    vals, ok, _ = query._parse_column(card, 2, ct.Col("int32"), None)
+    assert vals.device.type == ok.device.type == "cuda"
+    rng = np.random.default_rng(2)
+    keys = torch.from_numpy(rng.integers(-9, 9, 70_000).astype(np.int32))
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31, 70_000)
+                            .astype(np.int32))
+    _alike(ct.group_aggregate(keys.to(cuda_device), vals.to(cuda_device)),
+           ct.group_aggregate(keys, vals), "group_aggregate")
+
+
+@pytest.mark.gpu
+def test_corpus_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """A three-file CsvCorpus on the card == on the CPU: its per-file
+    aggregates, the corpus tape's routed gathers (tensors on the card)
+    and ORDER BY through the corpus tape."""
+    paths = []
+    for i, n in enumerate((150, 40, 90)):
+        p = tmp_path / f"part{i}.csv"
+        p.write_bytes(relational_csv(60 + i, n))
+        paths.append(str(p))
+    card = ct.CsvCorpus(paths, device=cuda_device)
+    cpu = ct.CsvCorpus(paths, device="cpu")
+    for (name, got), (_, want) in zip(_rel_calls(card), _rel_calls(cpu)):
+        if name != "join_typed":
+            _alike(got(), want(), name)
+    _alike(ct.column_quantiles(card, "v", (0.0, 0.3, 1.0), "int32"),
+           ct.column_quantiles(cpu, "v", (0.0, 0.3, 1.0), "int32"),
+           "corpus quantiles")
+    recs = np.r_[np.arange(0, 280, 7), 279, 280, -1]
+    flds = np.arange(recs.size) % 10
+    got = card.serving_tape().gather_fields(recs, flds, 32)
+    want = cpu.serving_tape().gather_fields(recs, flds, 32)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+    _alike(ct.order_records(card.serving_tape(), "ts", schema=REL_SCHEMA),
+           ct.order_records(cpu.serving_tape(), "ts", schema=REL_SCHEMA),
+           "corpus order")
