@@ -125,7 +125,7 @@ Phases, each of which fails the run on any error:
    1 GiB of the ASCII table and of CJK text, its plain version at 64
    MiB), the warm builds with and without it, and each column's warm
    time.
-9. the relational layer, last, after phase 8: column_stats (int exact,
+9. the relational layer, after phase 8: column_stats (int exact,
    a float spec within rtol 1e-5 of the host's float64 sum),
    column_quantiles, describe, select_records (an int compare and a
    LIKE), order_records both ways, groupby_typed and group_aggregate on
@@ -140,6 +140,25 @@ Phases, each of which fails the run on any error:
    the rank bisection, order_records through the corpus tape); each
    operation's warm median of 3; a torch.profiler trace of a warm
    groupby_typed and order_records (busy share, top device ops).
+10. SQL (sql, window, setops), last, after phase 9: the same statement
+   on each table built from the files by sql itself (engine="packed":
+   B1 + B2; engine="offsets": B3), then twelve statements over the 1 GiB
+   table on the create_packed tape and on the create + DeviceTape tape,
+   with the 64 MiB block as the second table: windows over 16-row
+   partitions (ROW_NUMBER, SUM, AVG, COUNT, and SUM of f5 read as
+   float32, the double-f32 scan) and over the whole table's sort (RANK
+   and LAG by f2 DESC, f0; MIN over ROWS 3 PRECEDING AND 3 FOLLOWING,
+   the sparse table), UNION, INTERSECT and EXCEPT with the block, a
+   GROUP BY with HAVING, ORDER BY and LIMIT, a JOIN whose WHERE and
+   GROUP BY push down to each side, an IN subquery and two EXPLAIN
+   ANALYZE (their text names the sql.window and sql.setop spans); each
+   once under the dispatch watch with the window and set-operation
+   executors spied (every call must return a device result, never fall
+   to the host executor), held against the truth from the block's golden
+   fields, tiled, then its warm median of 3 (an EXPLAIN ANALYZE prints
+   the time of its checked run instead); a window over the text
+   field f3 on the block; a torch.profiler trace of the four window
+   statements.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -152,6 +171,7 @@ native extractor under csv_simd_tpu_torch/_build/.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -1753,6 +1773,319 @@ def run_relational_path(device, block: bytes, index: np.ndarray,
     return out
 
 
+SQL_HALF = 500_000_000  # the set operations' and the join's f2 filter
+SQL_TENTH = 100_000_000  # the IN subquery's and EXCEPT's f1 filter
+
+
+def sql_truth(block: bytes, index: np.ndarray, per_block: int) -> dict:
+    """The host's truth for phase 10 from the 64 MiB block's golden
+    fields, tiled 16 times: f1, f2 (int64), f5 as the float32 parse
+    gives it, f3 decoded, and the orders the windows without a
+    partition sort by (stable, as np.lexsort is)."""
+    from csv_simd_tpu_torch import decode_field
+
+    arr = np.frombuffer(block, np.uint8)
+    out = {f"f{k}": np.array(block_fields(arr, index, per_block, k))
+           .astype(np.int64) for k in (1, 2)}
+    out["f5_float"] = fma_float32(block_fields(arr, index, per_block, 5))
+    out["f3"] = np.array([decode_field(v).decode() for v in
+                          block_fields(arr, index, per_block, 3)], object)
+    f0 = np.tile(np.arange(per_block), REPEATS)
+    f2 = np.tile(out["f2"], REPEATS)
+    out["desc_order"] = np.lexsort((f0, -f2))
+    out["asc_order"] = np.argsort(f2, kind="stable")
+    return out
+
+
+def _ints(what: str, got, want) -> None:
+    """An int column of a result (int64, or exact Python ints in an
+    object array) against the truth, with no NULL among them."""
+    got = np.asarray(got)
+    if got.dtype == object and any(v is None for v in got):
+        raise AssertionError(f"{what}: NULL where the truth has none")
+    same_array(what, got.astype(np.int64), np.asarray(want, np.int64))
+
+
+def sql_statements(truth: dict, per_block: int) -> list:
+    """(name, statement, schema, check, spied executors) for phase 10;
+    `big` is the 1 GiB table and `block` its 64 MiB block. Every
+    window item and set operation must take its device executor: the
+    spied executors' calls, each of which must return a result."""
+    n = REPEATS * per_block
+    ids = np.arange(n)
+    f0 = ids % per_block
+    f1, f2 = truth["f1"], truth["f2"]
+    tile = lambda a: np.tile(a, REPEATS)  # noqa: E731
+    half = f2 < SQL_HALF
+
+    def partitioned(r):
+        _ints("row_number", r["rn"], ids // per_block + 1)
+        _ints("SUM(f1)", r["s"], tile(REPEATS * f1))
+        same_array("AVG(f1)", r["a"], tile(f1).astype(np.float64))
+        _ints("COUNT(*)", r["c"], np.full(n, REPEATS))
+
+    def float_sum(r):
+        same_array("SUM(f5) float32",
+                   r["s5"], tile(REPEATS * truth["f5_float"]
+                                 .astype(np.float64)))
+
+    def ranked(r):
+        order = truth["desc_order"]
+        key = tile(f2)[order] * per_block + f0[order]
+        change = np.r_[True, key[1:] != key[:-1]]
+        start = np.maximum.accumulate(np.where(change, np.arange(n), 0))
+        rank = np.empty(n, np.int64)
+        rank[order] = start + 1
+        _ints("RANK()", r["r"], rank)
+        lag = r["p"]
+        if lag[order[0]] is not None:
+            raise AssertionError("LAG of the first row is not NULL")
+        prev = np.empty(n, np.int64)
+        prev[order[1:]] = tile(f1)[order[:-1]]
+        rest = np.delete(np.arange(n), order[0])
+        _ints("LAG(f1)", lag[rest], prev[rest])
+
+    def slid(r):
+        order = truth["asc_order"]
+        srt = np.pad(tile(f1)[order], 3, constant_values=2**62)
+        lo = np.lib.stride_tricks.sliding_window_view(srt, 7).min(axis=1)
+        want = np.empty(n, np.int64)
+        want[order] = lo
+        _ints("MIN(f1) ROWS 3 PRECEDING AND 3 FOLLOWING", r["m"], want)
+
+    def union(r):
+        _ints("UNION f0", r["f0"], np.arange(per_block))
+
+    def setop(keep):
+        def check(r):
+            rows = np.flatnonzero(keep)
+            _ints("set operation f0", r["f0"], rows)
+            _ints("set operation f1", r["f1"], f1[rows])
+        return check
+
+    def grouped(r):
+        _ints("GROUP BY keys", r["f0"], np.arange(10))
+        _ints("COUNT(*)", r["count"], np.full(10, REPEATS))
+        _ints("SUM(f1)", r["sum_f1"], REPEATS * f1[:10])
+
+    def joined(r):
+        keys = np.flatnonzero(half)
+        _ints("JOIN keys", r["k"], keys)
+        _ints("JOIN COUNT(*)", r["c"], np.full(keys.size, REPEATS))
+        _ints("JOIN SUM(block.f1)", r["s"], REPEATS * f1[keys])
+
+    def in_sub(r):
+        _ints("IN (SELECT ...)", r["f0"],
+              np.flatnonzero(tile(f1 < SQL_TENTH)) % per_block)
+
+    def analyzed(span):
+        def check(text):
+            if span not in text:
+                raise AssertionError(f"EXPLAIN ANALYZE names no {span}: "
+                                     f"{text}")
+        return check
+
+    win, dedupe, setop_ = "window_column", "dedupe_keep", "setop_keep_concat"
+    over = "OVER (PARTITION BY f0)"
+    f5 = {"f5": "float32"}
+    return [
+        ("window PARTITION BY f0",
+         "SELECT f0, ROW_NUMBER() OVER (PARTITION BY f0 ORDER BY f1) AS rn,"
+         f" SUM(f1) {over} AS s, AVG(f1) {over} AS a,"
+         f" COUNT(*) {over} AS c FROM big", None, partitioned, {win: 4}),
+        ("window SUM(f5 float32)",
+         f"SELECT SUM(f5) {over} AS s5 FROM big", f5, float_sum, {win: 1}),
+        ("window RANK, LAG ORDER BY f2 DESC, f0",
+         "SELECT f0, RANK() OVER (ORDER BY f2 DESC, f0) AS r,"
+         " LAG(f1) OVER (ORDER BY f2 DESC, f0) AS p FROM big", None, ranked,
+         {win: 2}),
+        ("window MIN ROWS 3 PRECEDING AND 3 FOLLOWING",
+         "SELECT MIN(f1) OVER (ORDER BY f2 ROWS BETWEEN 3 PRECEDING AND"
+         " 3 FOLLOWING) AS m FROM big", None, slid, {win: 1}),
+        ("UNION", "SELECT f0 FROM big UNION SELECT f0 FROM block", None,
+         union, {dedupe: 1}),
+        ("INTERSECT",
+         "SELECT f0, f1 FROM big INTERSECT SELECT f0, f1 FROM block"
+         f" WHERE f2 < {SQL_HALF}", None, setop(half), {setop_: 1}),
+        ("EXCEPT",
+         "SELECT f0, f1 FROM big EXCEPT SELECT f0, f1 FROM block"
+         f" WHERE f2 < {SQL_HALF}", None, setop(~half), {setop_: 1}),
+        ("GROUP BY HAVING ORDER BY LIMIT",
+         "SELECT f0, COUNT(*), SUM(f1) FROM big GROUP BY f0"
+         " HAVING COUNT(*) = 16 ORDER BY f0 LIMIT 10", None, grouped, {}),
+        # the WHERE and the group-by push down to each side (the group
+        # key is the join key); a plain JOIN would materialize every
+        # column of both sides on the host, as the reference's does
+        ("JOIN WHERE GROUP BY (pushdown)",
+         "SELECT big.f0 AS k, COUNT(*) AS c, SUM(block.f1) AS s FROM big"
+         " JOIN block ON big.f0 = block.f0"
+         f" WHERE big.f2 < {SQL_HALF} GROUP BY big.f0 ORDER BY k", None,
+         joined, {}),
+        ("IN (SELECT ...)",
+         "SELECT f0 FROM big WHERE f0 IN (SELECT f0 FROM block WHERE"
+         f" f1 < {SQL_TENTH})", None, in_sub, {}),
+        ("EXPLAIN ANALYZE window",
+         f"EXPLAIN ANALYZE SELECT f0, SUM(f1) {over} AS s FROM big", None,
+         analyzed("sql.window"), {win: 1}),
+        ("EXPLAIN ANALYZE EXCEPT",
+         "EXPLAIN ANALYZE SELECT f0 FROM big EXCEPT SELECT f0 FROM block"
+         f" WHERE f1 < {SQL_TENTH}", None, analyzed("sql.setop"),
+         {setop_: 1}),
+    ]
+
+
+class Spied:
+    """Counts a device executor's calls and those that returned None (a
+    fall to the host executor)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.calls = self.none = 0
+
+    def __call__(self, *a, **k):
+        r = self.real(*a, **k)
+        self.calls += 1
+        self.none += r is None
+        return r
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def run_sql_path(device, block: bytes, index: np.ndarray, per_block: int,
+                 path: str) -> dict:
+    """Phase 10: SQL (sql, window, setops) on the 1 GiB table through
+    both engines' tapes, with the 64 MiB block as the second table; each
+    statement once under on_card with its window and set-operation
+    executors spied (each must return a device result), its result held
+    against the host's truth, then its warm median of 3 (EXPLAIN ANALYZE:
+    the time its text reports); the statement that builds its own tapes
+    from the files (with the launch counts);
+    text keys on the block; a trace of the window statements."""
+    import csv_simd_tpu_torch as ct
+    from csv_simd_tpu_torch import _kernels, setops, window
+    from csv_simd_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    truth = sql_truth(block, index, per_block)
+    statements = sql_statements(truth, per_block)
+    out = {"times": {}, "launches": {}}
+    block_path = os.path.join(tempfile.gettempdir(),
+                              "csv_simd_torch_smoke_sql_block.csv")
+    with open(block_path, "wb") as f:
+        f.write(block)
+    modules = {"window_column": window, "dedupe_keep": setops,
+               "setop_keep_concat": setops}
+
+    def checked(what, q, tables, schema, check, executors, watch=True,
+                **kw):
+        def run():
+            return ct.sql(q, tables=tables, schema=schema, device=device,
+                          **kw)
+
+        with contextlib.ExitStack() as stack:
+            spies = [stack.enter_context(Spied(modules[name], name))
+                     for name in modules]
+            res = on_card(what, run) if watch else run()
+        for s in spies:
+            want = executors.get(s.name, 0)
+            if s.calls < want or s.none:
+                raise AssertionError(
+                    f"{what}: {s.name} returned a device result "
+                    f"{s.calls - s.none} times of {s.calls}, want {want}")
+        check(res)
+        return res
+
+    # the entry point builds its tapes from the files, with the launch
+    # counts set to 0 just before (not under the watch: a build stages
+    # the file in pinned host memory)
+    need_kernels = {"packed": ("stage1_v4", "row_prefix"),
+                    "offsets": ("stage1_fold",)}
+    grouped = next(st for st in statements if st[0].startswith("GROUP"))
+    for engine, kernels in need_kernels.items():
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        checked(f"{engine} from the files", grouped[1],
+                {"big": path, "block": block_path}, None, grouped[3], {},
+                watch=False, engine=engine)
+        out[f"from_files_s_{engine}"] = time.perf_counter() - t0
+        out["launches"][engine] = _kernels.launch_counts()
+        for name in kernels:
+            need(out["launches"][engine], name, 1, f"sql engine={engine}")
+
+    tapes = {
+        "packed": (ct.create_packed(path, device=device),
+                   ct.create_packed(block_path, device=device)),
+        "offsets": tuple(ct.DeviceTape.from_tape(
+            ct.create(p, backend="cuda", device=device), device=device)
+            for p in (path, block_path)),
+    }
+    out["analyze"] = {}
+    for engine, (big, blk) in tapes.items():
+        tables = {"big": big, "block": blk}
+        times = out["times"][engine] = {}
+        for name, q, schema, check, executors in statements:
+            res = checked(f"{engine} {name}", q, tables, schema, check,
+                          executors)
+            if name.startswith("EXPLAIN"):
+                # its statement is timed above; the text times its run
+                # under the watch
+                out["analyze"][f"{engine} {name}"] = next(
+                    ln for ln in res.splitlines() if "executed in" in ln)
+                continue
+            times[name] = median_s(lambda: ct.sql(
+                q, tables=tables, schema=schema, device=device))
+
+    # text keys on the 64 MiB block: the reference factorizes them on
+    # the host, one Python str a row
+    keys, inv, counts = np.unique(truth["f3"], return_inverse=True,
+                                  return_counts=True)
+    rank = np.empty(per_block, np.int64)
+    seen = np.zeros(keys.size, np.int64)
+    for i, k in enumerate(inv):
+        seen[k] += 1
+        rank[i] = seen[k]
+
+    def text_window(r):
+        _ints("ROW_NUMBER over f3", r["rn"], rank)
+        _ints("COUNT(*) over f3", r["c"], counts[inv])
+
+    q = ("SELECT f3, ROW_NUMBER() OVER (PARTITION BY f3 ORDER BY f0) AS rn,"
+         " COUNT(*) OVER (PARTITION BY f3) AS c FROM block")
+    blk = tapes["packed"][1]
+    checked("text keys", q, {"block": blk}, None, text_window,
+            {"window_column": 2})
+    out["times"]["text"] = {"window PARTITION BY f3 (block)": median_s(
+        lambda: ct.sql(q, tables={"block": blk}, device=device))}
+    out["text_keys"] = int(keys.size)
+
+    # where the window statements' time goes, on the packed tape
+    big, blk = tapes["packed"]
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profiling.device_trace(trace_dir):
+            for name, q, schema, _check, _ex in statements[:4]:
+                with profiling.named(name):
+                    ct.sql(q, tables={"big": big, "block": blk},
+                           schema=schema, device=device)
+        per, busy = _device_ops(os.path.join(trace_dir,
+                                             profiling.TRACE_FILE))
+    out["trace_busy"] = busy
+    out["trace_top"] = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+    out["trace_device_ms"] = sum(ms for ms, _ in per.values())
+    out["rows"] = REPEATS * per_block
+    out["statements"] = len(statements)
+    del tapes, big, blk
+    os.remove(block_path)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def driven(fn, *args, **kw) -> tuple:
     """fn's result and the launch counts of its run alone."""
     from csv_simd_tpu_torch import _kernels
@@ -2290,6 +2623,22 @@ def main() -> int:
           f"CsvCorpus of {REPEATS} files in {rel['corpus_build_s']:.3f} s, "
           f"launches {rel['corpus_launches']}; phase {rel['phase_s']:.1f} s")
 
+    # phase 10: SQL (sql, window, setops) on the 1 GiB table through both
+    # engines, each statement's executors spied and its result gated
+    # against the block's truth, then timed; last, after phase 9
+    sq = run_sql_path(device, block, index, per_block, path)
+    print(f"SQL: {sq['statements']} statements at {sq['rows']} rows on the "
+          f"create_packed tape (B1 + B2) and the create + DeviceTape tape "
+          f"(B3), every window item and set operation on its device "
+          f"executor, every result equal to the host's truth and computed on "
+          f"the card; GROUP BY from the files: packed "
+          f"{sq['from_files_s_packed']:.3f} s, launches "
+          f"{sq['launches']['packed']}; offsets "
+          f"{sq['from_files_s_offsets']:.3f} s, launches "
+          f"{sq['launches']['offsets']}; text keys ({sq['text_keys']} "
+          f"distinct) on the {per_block}-row block; phase "
+          f"{sq['phase_s']:.1f} s")
+
     gb = padded_rows(size) * ROW_BYTES / 1e9
     print(f"times on {card}:")
     for name in ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
@@ -2353,6 +2702,18 @@ def main() -> int:
           f"window, {rel['trace_device_ms']:.3f} ms of device ops; top device "
           "ops: " + "; ".join(f"{name[:100]} {t:.3f} ms x{k}"
                               for name, (t, k) in rel["trace_top"]))
+
+    for label, times in sq["times"].items():
+        print(f"SQL statements, {label} on {card} (warm s, median of 3; "
+              f"{sq['rows']} rows unless named): " + "; ".join(
+                  f"{k} {v:.4f}" for k, v in times.items()))
+    print("EXPLAIN ANALYZE, once under the dispatch watch: " + "; ".join(
+        f"{k}: {v}" for k, v in sq["analyze"].items()))
+    print(f"trace of the four window statements at {sq['rows']} rows on "
+          f"{card}: device busy {sq['trace_busy']:.2%} of the traced window, "
+          f"{sq['trace_device_ms']:.3f} ms of device ops; top device ops: "
+          + "; ".join(f"{name[:100]} {t:.3f} ms x{k}"
+                      for name, (t, k) in sq["trace_top"]))
 
     # phase 6 and 7 results, one line each, with the card
     for at in ("64 MiB", "1 GiB"):

@@ -22,8 +22,10 @@ engine, which g++ builds into `_build/` at first use).
 The relational layer runs over any of those tapes with torch ops on the
 tape's device: `read_typed` -> `Frame` (frame.py), `CsvCorpus` over many
 files (corpus_api.py), filters, statistics, quantiles, ORDER BY and
-GROUP BY (query.py) and equi-joins (join.py). Its entry points that
-build a tape take `device="cuda"` as `create` does.
+GROUP BY (query.py) and equi-joins (join.py). `sql` compiles a SELECT
+statement onto it (sql.py), with device window functions (window.py) and
+set operations (setops.py). Its entry points that build a tape take
+`device="cuda"` as `create` does.
 """
 
 from .api import create, create_from_bytes, create_packed
@@ -52,6 +54,8 @@ from .frame import Col, Frame, infer_schema, read_typed, write_csv
 from .index import build_index, build_index_device
 from .join import join_records, join_typed
 from .offsetfree import PackedDeviceTape
+from .sql import SqlError, SqlResult, sql
+from .sql import explain as explain_sql
 from .query import (
     Stats,
     column_quantiles,
@@ -125,4 +129,8 @@ __all__ = [
     "order_records",
     "select_records",
     "value_counts",
+    "sql",
+    "explain_sql",
+    "SqlResult",
+    "SqlError",
 ]

@@ -1,8 +1,8 @@
 """The port's public names against the JAX package's: every name the JAX
-package exports is exported by the port, except the 4 that come with the
-module the port has not ported yet (sql). The 22 names the port defines
-in its own copies of the host and relational modules are its own
-objects, and its constants have the JAX package's values."""
+package exports is exported by the port. The names of OWN_OBJECTS, which
+the port defines in its own copies of the host, relational and SQL
+modules, are its own objects, and its constants have the JAX package's
+values."""
 
 import numpy as np
 import pytest
@@ -10,20 +10,18 @@ import pytest
 import csv_simd_tpu as jx
 import csv_simd_tpu_torch as pt
 
-UNPORTED = {
-    # sql
-    "sql", "explain_sql", "SqlResult", "SqlError",
-}
+UNPORTED = set()
 OWN_OBJECTS = ("StructureError", "MissingValue", "InvalidState", "NewLine",
                "Boundary", "Chunk", "boundaries", "build_nibble_luts",
                "DecodedView", "decode_field", "decode_str",
-               "Col", "Frame", "Stats", "CsvCorpus", "CorpusTape")
+               "Col", "Frame", "Stats", "CsvCorpus", "CorpusTape",
+               "sql", "explain_sql", "SqlResult", "SqlError")
 CONSTANTS = ("CODE_NEWLINE", "CODE_DELIM", "CODE_SPACE", "CODE_ESCAPE",
              "CODE_QUOTE", "CODE_STRUCTURAL")
 
 
 def test_missing_names_are_exactly_the_unported_modules():
-    assert len(UNPORTED) == 4
+    assert UNPORTED == set()
     assert set(jx.__all__) - set(pt.__all__) == UNPORTED
 
 

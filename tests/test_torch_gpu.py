@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, bit for bit, and the relational layer (query, frame, corpus_api,
-join) on the card against its own device="cpu" results. Every test needs
+join) and SQL (sql, window, setops) on the card against their own
+device="cpu" results. Every test needs
 an NVIDIA card and skips without one. This file imports no JAX, so it
 also runs where JAX is absent (and `relational_csv`, the seeded table of
 the CPU differential tests, lives here for that reason):
@@ -1440,3 +1441,198 @@ def test_corpus_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     _alike(ct.order_records(card.serving_tape(), "ts", schema=REL_SCHEMA),
            ct.order_records(cpu.serving_tape(), "ts", schema=REL_SCHEMA),
            "corpus order")
+
+
+# -------------------------------------------------------------------- SQL
+
+WINDOW_FNS = ("row_number", "rank", "dense_rank", "percent_rank",
+              "cume_dist", "lag", "lead", "ntile", "first_value",
+              "last_value", "nth_value", "count", "sum", "mean", "min",
+              "max")
+
+
+def _same_payload(got, want, path):
+    """window_column / set-operation results: exact, floats bit for bit
+    (the card's float32 additions round as the CPU's)."""
+    assert (got is None) == (want is None), path
+    if want is None:
+        return
+    if isinstance(want, tuple):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_payload(g, w, f"{path}[{i}]")
+    elif isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype and got.shape == want.shape, path
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert got == want, (path, got, want)
+
+
+@pytest.mark.gpu
+def test_window_column_on_the_card_matches_the_cpu(cuda_device,
+                                                   monkeypatch):
+    """Every window function family over device-resident and host keys
+    (NULLS FIRST among them), int and float32 values, the default frame
+    and ROWS frames: the card's payload == the CPU's."""
+    from csv_simd_tpu_torch import window
+    from csv_simd_tpu_torch.query import SortDir
+
+    monkeypatch.setattr(window, "DEVICE_WINDOW_MIN_ROWS", 1)
+    rng = np.random.default_rng(5)
+    n = 40_000
+    part = rng.integers(0, 400, n).astype(np.int32)
+    pok = rng.random(n) > 0.05
+    text = rng.choice(np.array(["a", "bb", "c"], object), n)
+    order = rng.integers(-900, 900, n).astype(np.int32)
+    ook = rng.random(n) > 0.1
+    vi = rng.integers(-10**6, 10**6, n).astype(np.int32)
+    big = rng.choice([1e6, -1e6, 3e7], n) * rng.integers(0, 2, n)
+    vf = (big + rng.standard_normal(n)).astype(np.float32)
+    vok = rng.random(n) > 0.1
+
+    def run(fn, dev, vals, frame):
+        t = (lambda a: torch.from_numpy(a).to(dev))
+        keys = [(part, pok, (t(part), t(pok))), (text, None)]
+        orders = [(order, ook, SortDir(True, True), (t(order), t(ook)))]
+        value = fn in ("count", "sum", "mean", "min", "max")
+        return window.window_column(
+            fn, n, keys, orders, vals if value else None,
+            vok if value else None,
+            offset={"lag": 2, "ntile": 7, "nth_value": 3}.get(fn, 1),
+            is_int=vals.dtype.kind == "i", frame=frame,
+            dev=(t(vals), t(vok)) if value else None, device=dev)
+
+    for fn in WINDOW_FNS:
+        frames = [None] if fn in WINDOW_FNS[:8] else \
+            [None, ("rows", None, 0), ("rows", -3, None), ("rows", -3, 3),
+             ("rows", -5000, 5000)]
+        for vals in (vi, vf):
+            for frame in frames:
+                got = run(fn, cuda_device, vals, frame)
+                want = run(fn, "cpu", vals, frame)
+                assert got is not None, (fn, frame)
+                assert got[0] == want[0], (fn, frame)
+                _same_payload(got[1], want[1], f"{fn} {frame} {vals.dtype}")
+
+
+@pytest.mark.gpu
+def test_set_operations_on_the_card_match_the_cpu(cuda_device):
+    from csv_simd_tpu_torch import setops
+
+    rng = np.random.default_rng(6)
+    n = 30_000
+    cols = {"a": rng.integers(0, 30, n).astype(np.int32),
+            "f": rng.integers(0, 9, n) / 4.0}
+    oks = {"a": rng.random(n) > 0.05, "f": None}
+    fr = ct.Frame(["a", "f"], cols, oks,
+                  {"a": ct.Col("int32"), "f": ct.Col("float")}, n)
+    _same_payload(setops.dedupe_keep(fr, cuda_device),
+                  setops.dedupe_keep(fr, "cpu"), "dedupe")
+    for op in ("except", "intersect"):
+        for na in (1, 12_345, n - 1):
+            _same_payload(
+                setops.setop_keep_concat(fr, na, op, device=cuda_device),
+                setops.setop_keep_concat(fr, na, op, device="cpu"),
+                f"{op} {na}")
+
+
+SQL_STATEMENTS = (
+    "SELECT id, ROW_NUMBER() OVER (PARTITION BY k ORDER BY v) AS rn,"
+    " SUM(v) OVER (PARTITION BY k) AS s, AVG(f) OVER (PARTITION BY t"
+    " ORDER BY id) AS m, COUNT(*) OVER (PARTITION BY k) AS c FROM t",
+    "SELECT id, RANK() OVER (ORDER BY f DESC, id) AS r,"
+    " LAG(s) OVER (ORDER BY f DESC, id) AS p,"
+    " MIN(v) OVER (ORDER BY f ROWS BETWEEN 3 PRECEDING AND"
+    " 3 FOLLOWING) AS lo FROM t",
+    "SELECT k, v FROM t UNION SELECT k, v FROM t WHERE v > 0",
+    "SELECT k, f FROM t EXCEPT SELECT k, f FROM t WHERE f < 0",
+    "SELECT k, f FROM t INTERSECT SELECT k, f FROM t WHERE f < 0",
+    "SELECT t, COUNT(*), SUM(v), AVG(f) FROM t GROUP BY t"
+    " HAVING COUNT(*) > 1 ORDER BY t LIMIT 10",
+    "SELECT a.id, b.s FROM a JOIN b ON a.id = b.id WHERE a.v > 0",
+    "SELECT id FROM t WHERE k IN (SELECT k FROM t WHERE v > 0)",
+)
+
+
+def _sql_alike(got, want, path):
+    if type(want).__name__ == "SqlResult":
+        assert got.names == want.names and len(got) == len(want), path
+        for n in want.names:
+            _alike(np.asarray(got[n]), np.asarray(want[n]), f"{path}[{n}]")
+    else:
+        _alike(got, want, path)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["offsets", "packed"])
+def test_sql_on_the_card_matches_the_cpu(cuda_device, engine, monkeypatch):
+    """sql() over a CUDA tape == over a device="cpu" tape of the same
+    bytes: windows and set operations on their device path (thresholds
+    at 1), GROUP BY, a JOIN, an IN subquery and EXPLAIN ANALYZE."""
+    from csv_simd_tpu_torch import setops, window
+    from csv_simd_tpu_torch.frame import _resolve_tape
+
+    monkeypatch.setattr(window, "DEVICE_WINDOW_MIN_ROWS", 1)
+    monkeypatch.setattr(setops, "DEVICE_SETOP_MIN_ROWS", 1)
+    data = relational_csv(11)
+    card, _ = _resolve_tape(data, None, "auto", engine, False, cuda_device)
+    cpu, _ = _resolve_tape(data, None, "auto", engine, False, "cpu")
+    for q in SQL_STATEMENTS:
+        got = ct.sql(q, card, tables={"a": card, "b": card},
+                     schema=REL_SCHEMA, right_schema=REL_SCHEMA,
+                     device=cuda_device)
+        want = ct.sql(q, cpu, tables={"a": cpu, "b": cpu},
+                      schema=REL_SCHEMA, right_schema=REL_SCHEMA,
+                      device="cpu")
+        _sql_alike(got, want, q)
+    q = "EXPLAIN ANALYZE " + SQL_STATEMENTS[0]
+    got = ct.sql(q, card, schema=REL_SCHEMA, device=cuda_device)
+    want = ct.sql(q, cpu, schema=REL_SCHEMA, device="cpu")
+    assert got.split("-- ANALYZE --")[0] == want.split("-- ANALYZE --")[0]
+    assert "sql.window" in got
+
+
+@pytest.mark.gpu
+def test_sql_leaves_no_large_tensor_on_the_cpu(cuda_device, monkeypatch):
+    """sql(device="cuda") over CUDA tapes of 6,000 rows: every aten op
+    whose output has more than 4,096 elements runs on the card (copies
+    between devices aside). The tapes are built first: a build stages
+    its bytes in pinned host memory."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from csv_simd_tpu_torch import setops, window
+
+    crossing = {"_to_copy", "copy_", "lift_fresh", "detach", "alias"}
+
+    class Watch(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.cuda_ops = 0
+            self.cpu_ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            for t in tree_flatten(out)[0]:
+                if isinstance(t, torch.Tensor):
+                    if t.device.type == "cuda":
+                        self.cuda_ops += 1
+                    elif t.numel() > 4096 and name not in crossing:
+                        self.cpu_ops.append((name, tuple(t.shape)))
+            return out
+
+    monkeypatch.setattr(window, "DEVICE_WINDOW_MIN_ROWS", 1)
+    monkeypatch.setattr(setops, "DEVICE_SETOP_MIN_ROWS", 1)
+    from csv_simd_tpu_torch.frame import _resolve_tape
+
+    data = relational_csv(12, 6000)
+    for engine in ("offsets", "packed"):
+        tape, _ = _resolve_tape(data, None, "auto", engine, False,
+                                cuda_device)
+        for q in SQL_STATEMENTS:
+            with Watch() as w:
+                ct.sql(q, tape, tables={"a": tape, "b": tape},
+                       schema=REL_SCHEMA, right_schema=REL_SCHEMA,
+                       device=cuda_device)
+            assert w.cuda_ops and not w.cpu_ops, (engine, q, w.cpu_ops[:5])

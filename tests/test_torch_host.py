@@ -58,6 +58,13 @@ if native.available():
     print('native')
 else:
     assert 'g++' in str(native.build_error()), native.build_error()
+import importlib
+for m in ('sql', 'window', 'setops'):
+    importlib.import_module('csv_simd_tpu_torch.' + m)
+sys.modules['csv_simd_tpu_torch.window'].DEVICE_WINDOW_MIN_ROWS = 1
+r = ct.sql('SELECT id, ROW_NUMBER() OVER (ORDER BY id DESC) AS r FROM t',
+           data, device='cpu')
+assert r['r'].tolist() == [3, 2, 1], r['r']
 ct.save_tape(t, str(here / 'idx.npz'))
 back = ct.load_tape(str(here / 'idx.npz'), data)
 assert np.array_equal(back.index, want)
@@ -72,7 +79,8 @@ print('ok')
 def test_port_copied_alone_runs_without_jax(tmp_path):
     """The package copied alone (no csv_simd_tpu beside it, jax and
     csv_simd_tpu blocked) imports and, on the CPU, runs create_from_bytes,
-    create with native extraction, golden and an artifact round trip;
+    create with native extraction, golden, an artifact round trip and a
+    SQL window statement on the device path;
     the native library builds under its own _build/."""
     shutil.copytree(PORT, tmp_path / "csv_simd_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))

@@ -21,6 +21,8 @@ import csv_simd_tpu as jx
 import csv_simd_tpu_torch as pt
 from csv_simd_tpu import query as jq
 from csv_simd_tpu_torch import query as pq
+from csv_simd_tpu_torch import setops as psetops
+from csv_simd_tpu_torch import window as pwindow
 
 from test_torch_gpu import relational_csv
 
@@ -482,9 +484,10 @@ def test_value_counts_and_distinct_match_jax(engine, column, spec):
 def test_public_functions_read_the_device_through_one_helper(monkeypatch,
                                                              tmp_path):
     """With torch.Tensor.__array__ made to raise, each of the 19 public
-    relational names runs on CPU tapes of both engines: an implicit
-    np.asarray(tensor), which would raise on a CUDA tensor, fails here
-    too."""
+    relational names and sql() run on CPU tapes of both engines: an
+    implicit np.asarray(tensor), which would raise on a CUDA tensor,
+    fails here too. sql's window and set-operation statements run with
+    the device thresholds at 1, and take the device path."""
     paths = []
     for i in range(3):
         p = tmp_path / f"part{i}.csv"
@@ -528,3 +531,40 @@ def test_public_functions_read_the_device_through_one_helper(monkeypatch,
                       right_columns=["s"], **kw)
     pt.group_aggregate(torch.arange(10, dtype=torch.int32) % 3,
                        torch.arange(10, dtype=torch.float32))
+
+    device_results = []
+    for mod, name in ((pwindow, "window_column"), (psetops, "dedupe_keep"),
+                      (psetops, "setop_keep_concat")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, **k):
+            r = _real(*a, **k)
+            device_results.append(r is not None)
+            return r
+
+        monkeypatch.setattr(mod, name, spy)
+    monkeypatch.setattr(pwindow, "DEVICE_WINDOW_MIN_ROWS", 1)
+    monkeypatch.setattr(psetops, "DEVICE_SETOP_MIN_ROWS", 1)
+    statements = [
+        "SELECT id, SUM(f) OVER (PARTITION BY k ORDER BY v) AS s,"
+        " RANK() OVER (ORDER BY v DESC NULLS FIRST) AS r,"
+        " LAG(s) OVER (PARTITION BY t ORDER BY id) AS p,"
+        " MIN(v) OVER (ORDER BY id ROWS BETWEEN 2 PRECEDING"
+        " AND 2 FOLLOWING) AS m FROM t",
+        "SELECT k, v FROM t WHERE v > 0 UNION SELECT k, v FROM t"
+        " EXCEPT SELECT k, v FROM t WHERE k = 1",
+        "SELECT k, f FROM t INTERSECT SELECT k, f FROM t WHERE f > 0",
+        "SELECT t, COUNT(*), SUM(v), AVG(f) FROM t WHERE k >= 0"
+        " GROUP BY t HAVING COUNT(*) > 1 ORDER BY t",
+        "SELECT a.id, b.v FROM a JOIN b ON a.id = b.id WHERE a.k > 0",
+        "SELECT id FROM t WHERE k IN (SELECT k FROM t WHERE v > 0)",
+        "EXPLAIN ANALYZE SELECT id, ROW_NUMBER() OVER (ORDER BY v) AS r"
+        " FROM t",
+    ]
+    for source, eng in ((DATA, "offsets"), (DATA, "packed"),
+                        (corpus, "offsets")):
+        for q in statements:
+            tables = {"a": source, "b": DATA} if " JOIN " in q else None
+            pt.sql(q, None if tables else source, tables=tables,
+                   schema=SCHEMA, engine=eng, device="cpu")
+    assert device_results.count(True) >= 3 * 5, device_results
