@@ -159,6 +159,33 @@ Phases, each of which fails the run on any error:
    the time of its checked run instead); a window over the text
    field f3 on the block; a torch.profiler trace of the four window
    statements.
+11. sharding (parallel.sharded, parallel.serving and the sharded
+   streaming build), last, after phase 10, every mesh on the one card
+   (make_mesh(n, device="cuda")): the shard-parity kernel S1
+   (csrc/shard_parity.cu) against its plain version on the corpus,
+   random bytes at quote densities 0, 1/64 and 1/2 on shards of 8 to
+   4,104 rows, one quote around its block and grid-step edges, the 64
+   MiB block, the 1 GiB table and each shard of the 2.5 GiB table;
+   sharded_stage1 on the 64 MiB block at 1, 2, 3, 4, 5 and 8 shards in
+   the fold, seq and seq_wide layouts (S1 once a shard), equal to one
+   device's B3 and B1 words and to golden, on the JAX test's 60 KB
+   quoted span across every shard cut, and on the 1 GiB table with a
+   quote open across each cut of 4 shards; build_index_sharded and the
+   sharded streaming build (64 MiB chunks) of the 1 GiB table at 4
+   shards, entry for entry; ShardedTape.from_tape of the create tape and
+   ShardedPackedTape of the 1 GiB table with the lookups checked, the
+   latter's words equal to create_packed's, its row prefix to B2's, its
+   saved artifact loaded by PackedDeviceTape.load; then the headline, a
+   ShardedPackedTape of a 2.5 GiB table (the block's header and its data
+   rows 40 times, in host memory) on 4 shards: S1, B1 and B2 once a
+   shard, lookups (a batch of records past byte 2^31 among them),
+   column_int32 of f0 over all 14.7 M rows, column_stats, groupby_typed
+   and a SQL GROUP BY, each once under the dispatch watch and held
+   against the block's truth tiled 40 times; S1's times (64 MiB from a
+   CUDA graph and eager, 1 GiB by events, beside its plain version and
+   one library call), the sharded builds' warm times beside
+   create_packed's and create's index, lookups/s of both sharded tapes,
+   and a torch.profiler trace of a warm 2.5 GiB build.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -172,6 +199,7 @@ native extractor under csv_simd_tpu_torch/_build/.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import sys
@@ -221,7 +249,7 @@ GATED = ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
          "mosaic_probes.matmul32_roll", "mosaic_probes.int8_lane_gather",
          "mosaic_probes.cmp8", "mosaic_probes.select8",
          "mosaic_probes.sublane_concat", "mosaic_probes.unsigned_reduce",
-         "widestore_probe4.concat_mm", "utf8_errs")
+         "widestore_probe4.concat_mm", "utf8_errs", "quote_parity")
 # the gather reads 64 of each input row's 512 bytes; a pack product's
 # work is its multiply-adds, which its plain version's op count misses
 READS_AN_EIGHTH = ("widestore_probe2.s8_st16",)
@@ -969,18 +997,21 @@ def truth(index: np.ndarray, rows_len: int, per_block: int,
 
 
 def check_lookups(tape, data, index: np.ndarray, rows_len: int,
-                  per_block: int, seed: int, device) -> float:
-    """A warm-up batch and BATCHES timed batches of BATCH random (record,
-    field) lookups through tape.gather_fields, every byte checked against
-    the shifted golden index; returns lookups/s over the timed batches."""
-    n_records = REPEATS * per_block
+                  per_block: int, seed: int, device, repeats: int = REPEATS,
+                  rec_lo: int = 0, batches: int = BATCHES) -> float:
+    """A warm-up batch and `batches` timed batches of BATCH random
+    (record, field) lookups, records from rec_lo on, through
+    tape.gather_fields on a table of `repeats` copies of the block's rows,
+    every byte checked against the shifted golden index; returns lookups/s
+    over the timed batches."""
+    n_records = repeats * per_block
     rng = np.random.default_rng(seed)
     serve_s = 0.0
     quoted = 0
     # batch 0 warms up (the first launch of each torch kernel loads it);
-    # every batch is checked, batches 1..BATCHES are timed
-    for batch in range(BATCHES + 1):
-        recs = rng.integers(0, n_records, BATCH).astype(np.int32)
+    # every batch is checked, batches 1..batches are timed
+    for batch in range(batches + 1):
+        recs = rng.integers(rec_lo, n_records, BATCH).astype(np.int32)
         flds = rng.integers(0, N_FIELDS, BATCH).astype(np.int32)
         r_dev = torch.from_numpy(recs).to(device)
         f_dev = torch.from_numpy(flds).to(device)
@@ -1010,7 +1041,7 @@ def check_lookups(tape, data, index: np.ndarray, rows_len: int,
         quoted += int((out[:, 0] == 0x22).sum())
     if quoted == 0:
         raise AssertionError("no quoted field was served")
-    return BATCHES * BATCH / serve_s
+    return batches * BATCH / serve_s
 
 
 def run_main_path(path: str, device, index: np.ndarray, rows_len: int,
@@ -1244,6 +1275,24 @@ def utf8_bound(t: torch.Tensor) -> tuple:
     n_full = int(full.sum()) * 16
     ops = ops_per_byte / 4 * n_full + (t.numel() - n_full) / 4
     moved = t.numel() + 8
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", moved, ops,
+            INT32_OPS_PER_S)
+
+
+def s1_bound(n_bytes: int) -> tuple:
+    """S1's bound on n_bytes (bound() entry: ms, by, bytes moved,
+    operations, rate): it reads the bytes once and writes 4; its
+    operations are its plain version's a byte (counted on 256 KiB on the
+    CPU) times n_bytes."""
+    from csv_simd_tpu_torch.config import DEFAULT_DIALECT as d
+    from csv_simd_tpu_torch.parallel.sharded import _local_parity_plain
+
+    sample = torch.zeros(64 << 10, dtype=torch.int32)
+    ops = plain_work(lambda: _local_parity_plain(sample, d))[0] \
+        / (4 * sample.numel()) * n_bytes
+    moved = n_bytes + 4
     by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations", moved, ops,
@@ -1530,10 +1579,11 @@ def same_array(what: str, got, want) -> None:
                              f"{np.asarray(want)[:8]}")
 
 
-def check_stats(st, vals: np.ndarray, what: str) -> None:
+def check_stats(st, vals: np.ndarray, what: str,
+                repeats: int = REPEATS) -> None:
     """Stats of an int column against the tiled block: all exact."""
-    n = REPEATS * vals.size
-    want = (n, n, REPEATS * int(vals.sum()), int(vals.min()), int(vals.max()))
+    n = repeats * vals.size
+    want = (n, n, repeats * int(vals.sum()), int(vals.min()), int(vals.max()))
     got = (st.count, st.ok_count, st.sum, st.min, st.max)
     if got != want:
         raise AssertionError(f"{what}: {got} != {want}")
@@ -2086,6 +2136,428 @@ def run_sql_path(device, block: bytes, index: np.ndarray, per_block: int,
     return out
 
 
+SHARDS = 4          # the sharded tapes' mesh: 4 shards on the one card
+BIG_REPEATS = 40    # copies of the block's rows in the 2.5 GiB table
+MESH_SIZES = (1, 2, 3, 4, 5, 8)
+
+
+def gate_quote_parity(gate: Gate, device, cases) -> None:
+    """S1 (csrc/shard_parity.cu) against its plain version on the card:
+    the corpus, random bytes at quote densities 0, 1/64 and 1/2 on shards
+    of 8 to 4,104 rows for three quote bytes, and one quote at the first,
+    middle and last byte of sizes at the kernel's block and grid-step
+    edges (1,024 chunks of 16 bytes a block step, 8 blocks an SM)."""
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.config import Dialect
+    from csv_simd_tpu_torch.parallel.sharded import (
+        _local_parity_plain,
+        pad_words_for_mesh,
+    )
+
+    def check(w: torch.Tensor, what: str, quote: int = 0x22) -> None:
+        gate.same("quote_parity", _kernels.quote_parity(w, quote),
+                  _local_parity_plain(w, Dialect(quote=quote)), what)
+
+    for c in cases:
+        w = pad_words_for_mesh(np.frombuffer(c.data, np.uint8), 1)
+        check(torch.from_numpy(w).to(device), f"corpus {c.name}")
+    rng = np.random.default_rng(14)
+    for rows in (8, 16, 24, 72, 520, 1000, 1024, 1032, 4096, 4104):
+        for density in (0.0, 1 / 64, 0.5):
+            for quote in (0x22, 0x27, 0xA2):
+                b = rng.integers(0, 256, rows * 512, dtype=np.uint8)
+                b = np.where(b == quote, quote ^ 1, b)
+                b = np.where(rng.random(b.size) < density, quote, b)
+                w = torch.from_numpy(b.astype(np.uint8).view(np.int32))
+                check(w.to(device), f"{rows} rows at density {density:.4f} "
+                      f"of {quote:#x}", quote)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    step = 8 * sms * 1024
+    for chunks in (1, 2, 1023, 1024, 1025, 4097, step - 1, step, step + 1,
+                   3 * step + 5):
+        n = 16 * chunks
+        for at in (0, n // 2, n - 1):
+            t = torch.zeros(n, dtype=torch.uint8, device=device)
+            t[at] = 0x22
+            check(t.view(torch.int32), f"one quote at {at} of {n} bytes")
+
+
+def check_sharded_stage1(device, block: bytes, index: np.ndarray,
+                         want_mask: np.ndarray) -> dict:
+    """sharded_stage1 on the 64 MiB block at 1, 2, 3, 4, 5 and 8 shards
+    in the three layouts, each equal to the one-device kernel's words on
+    the same padded input (B3 at tile 512, B1 narrow, B1 wide), its counts
+    to golden's and its parity to golden's, and at 3 and 8 shards the
+    words to golden's mask; the JAX test's 60 KB quoted span across every
+    shard cut at 2, 4 and 8 shards against golden. Returns the launches
+    of the checked runs."""
+    from csv_simd_tpu_torch import golden
+    from csv_simd_tpu_torch.ops.stage1_v3 import stage1_fused
+    from csv_simd_tpu_torch.parallel.sharded import (
+        _fold_offsets,
+        make_mesh,
+        pad_words_for_mesh,
+        sharded_stage1,
+    )
+    from csv_simd_tpu_torch.ops.stage1_v4 import stage1_fused_v4
+
+    arr = np.frombuffer(block, np.uint8)
+    n_struct = index.size - 1
+    parity = golden.quote_parity_out(arr)
+    nonascii = int((arr >= 0x80).sum())
+    launches = {}
+
+    def one_device(w2d, layout):
+        if layout == "fold":
+            return stage1_fused(w2d, 0)[0]
+        if layout == "seq":
+            return stage1_fused_v4(w2d, 0, count_nonascii=False)[0]
+        return stage1_fused_v4(w2d.view(-1, 1024), 0, count_nonascii=False,
+                               out_mode="wide_native")[0]
+
+    for n in MESH_SIZES:
+        w2d = torch.from_numpy(pad_words_for_mesh(arr, n)).to(device)
+        mesh = make_mesh(n, device="cuda")
+        for layout in ("fold", "seq", "seq_wide"):
+            x = w2d.view(-1, 1024) if layout == "seq_wide" else w2d
+            out, launched = driven(sharded_stage1, x, 0, mesh, layout=layout,
+                                   count_nonascii=True)
+            need(launched, "quote_parity", n, f"sharded_stage1 {layout} {n}")
+            launches = _sum({0: launches, 1: launched})
+            packed, counts, excl, total, par, na = out
+            what = f"sharded_stage1({layout}) at {n} shards, 64 MiB"
+            if not torch.equal(torch.cat(packed), one_device(w2d, layout)):
+                raise AssertionError(f"{what}: words differ from one device's")
+            sums = counts.cpu().numpy().astype(np.int64)
+            if (int(total), int(sums.sum()), int(par)) != (n_struct, n_struct,
+                                                           parity):
+                raise AssertionError(f"{what}: total {int(total)}, parity "
+                                     f"{int(par)}")
+            if not np.array_equal(excl.cpu().numpy(),
+                                  np.cumsum(sums) - sums):
+                raise AssertionError(f"{what}: exclusive offsets differ")
+            if layout != "fold" and int(na.cpu().sum()) != nonascii:
+                raise AssertionError(f"{what}: non-ASCII count differs")
+            if n in (3, 8):
+                if layout == "fold":
+                    same_array(what, np.concatenate(
+                        _fold_offsets(packed, arr.size)), index[1:])
+                else:
+                    same_array(what, _unpack(torch.cat(packed), arr.size),
+                               want_mask)
+        del w2d
+    inner = "x," * 30000
+    span = np.frombuffer(f'a,b\n"{inner}end",2\nq,w\n'.encode(), np.uint8)
+    want = golden.structural_mask(span)
+    for n in (2, 4, 8):
+        w2d = torch.from_numpy(pad_words_for_mesh(span, n)).to(device)
+        for layout in ("fold", "seq", "seq_wide"):
+            x = w2d.view(-1, 1024) if layout == "seq_wide" else w2d
+            packed = sharded_stage1(x, 0, make_mesh(n, device="cuda"),
+                                    layout=layout)[0]
+            what = f"the 60 KB quoted span, {layout} at {n} shards"
+            if layout == "fold":
+                same_array(what, np.concatenate(
+                    _fold_offsets(packed, span.size)), np.flatnonzero(want))
+            else:
+                same_array(what, _unpack(torch.cat(packed), span.size), want)
+    return launches
+
+
+def check_quote_across_cuts(device, data: np.ndarray, size: int) -> None:
+    """The 1 GiB table with a quote open across each cut of a 4-shard
+    build (a byte before each cut set so that the quotes before the cut
+    are odd): the fold and wide layouts at 4 shards equal B3's and B1's
+    words over the whole input on one device, parities too."""
+    from csv_simd_tpu_torch.offsetfree import _to_device
+    from csv_simd_tpu_torch.ops.stage1_v3 import stage1_fused
+    from csv_simd_tpu_torch.ops.stage1_v4 import stage1_fused_v4
+    from csv_simd_tpu_torch.parallel.sharded import (
+        _mesh_rows,
+        make_mesh,
+        sharded_stage1,
+    )
+
+    b = _to_device(data, _mesh_rows(size, SHARDS) * 512, device)
+    cut = b.numel() // SHARDS
+    for k in range(1, SHARDS):
+        c = k * cut
+        odd = int((b[:c - 1] == 0x22).sum()) & 1
+        b[c - 1] = 0x78 if odd else 0x22
+        if int((b[:c] == 0x22).sum()) & 1 != 1:
+            raise AssertionError(f"no quote open across cut {k}")
+    w2d = b.view(torch.int32).view(-1, 128)
+    mesh = make_mesh(SHARDS, device="cuda")
+    fold = sharded_stage1(w2d, 0, mesh, layout="fold")
+    ref, ref_par = stage1_fused(w2d, 0)
+    if not torch.equal(torch.cat(fold[0]), ref) or int(fold[4]) != \
+            int(ref_par):
+        raise AssertionError("fold words with quotes open across the cuts "
+                             "differ from B3's")
+    del fold, ref
+    wide = sharded_stage1(w2d.view(-1, 1024), 0, mesh, layout="seq_wide")
+    ref, ref_par, _ = stage1_fused_v4(w2d.view(-1, 1024), 0,
+                                      count_nonascii=False,
+                                      out_mode="wide_native")
+    if not torch.equal(torch.cat(wide[0]), ref) or int(wide[4]) != \
+            int(ref_par):
+        raise AssertionError("wide words with quotes open across the cuts "
+                             "differ from B1's")
+
+
+def big_table(block: bytes) -> tuple:
+    """The 2.5 GiB table in host memory: the block's header, then its data
+    rows BIG_REPEATS times. Returns (bytes as uint8, header length)."""
+    header_len = block.index(b"\n") + 1
+    rows = np.frombuffer(block, np.uint8)[header_len:]
+    out = np.empty(header_len + BIG_REPEATS * rows.size, np.uint8)
+    out[:header_len] = np.frombuffer(block[:header_len], np.uint8)
+    out[header_len:].reshape(BIG_REPEATS, rows.size)[:] = rows
+    return out, header_len
+
+
+def run_sharded_path(gate: Gate, device, block: bytes, index: np.ndarray,
+                     per_block: int, path: str, want_mask: np.ndarray,
+                     block_words: torch.Tensor) -> dict:
+    """Phase 11: sharding. S1 gated against its plain version;
+    sharded_stage1 on the 64 MiB block and the quoted spans;
+    build_index_sharded and the sharded streaming build of the 1 GiB
+    table; ShardedTape and ShardedPackedTape of it (words, prefix,
+    artifact, lookups); then the headline, a ShardedPackedTape of the
+    2.5 GiB table on 4 shards: lookups past byte 2^31, the whole f0
+    column, its stats, a groupby and a SQL GROUP BY, each once under
+    device_watch and held against the block's truth; then the times and
+    a trace of a warm 2.5 GiB build."""
+    import csv_simd_tpu_torch as ct
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.config import DEFAULT_DIALECT as d
+    from csv_simd_tpu_torch.offsetfree import (
+        PackedDeviceTape,
+        _to_device,
+        prefix_for_packed,
+    )
+    from csv_simd_tpu_torch.ops.stage1_v2 import ROW_BYTES, padded_rows
+    from csv_simd_tpu_torch.parallel.serving import (
+        ShardedPackedTape,
+        ShardedTape,
+    )
+    from csv_simd_tpu_torch.parallel.sharded import (
+        _STAGE_BYTES,
+        _local_parity_plain,
+        build_index_sharded,
+        make_mesh,
+    )
+    from csv_simd_tpu_torch.streaming import build_index_sharded_streaming
+    from csv_simd_tpu_torch.tools._common import cuda_ms, graph_ms
+    from csv_simd_tpu_torch.utils import profiling
+    from corpus import all_cases
+
+    t_phase = time.perf_counter()
+    out = {"times": {}}
+    times = out["times"]
+    gate_quote_parity(gate, device, all_cases())
+    gate.same("quote_parity", _kernels.quote_parity(block_words, d.quote),
+              _local_parity_plain(block_words, d), "the 64 MiB block")
+    out["stage1_launches"] = check_sharded_stage1(device, block, index,
+                                                  want_mask)
+    size = os.path.getsize(path)
+    data = np.memmap(path, dtype=np.uint8, mode="r")
+    check_quote_across_cuts(device, data, size)
+    mesh = make_mesh(SHARDS, device="cuda")
+    rows_len = len(block) - (block.index(b"\n") + 1)
+
+    # the index builds of the 1 GiB table at 4 shards
+    got, launched = driven(build_index_sharded, data, mesh)
+    need(launched, "quote_parity", SHARDS, "build_index_sharded")
+    need(launched, "stage1_fold", SHARDS, "build_index_sharded")
+    check_index(got, index, rows_len)
+    del got
+    got, launched = driven(build_index_sharded_streaming, path, mesh,
+                           chunk_bytes=BLOCK_BYTES)
+    n_chunks = -(-size // BLOCK_BYTES)
+    need(launched, "quote_parity", SHARDS * n_chunks, "sharded streaming")
+    need(launched, "stage1_fold", SHARDS * n_chunks, "sharded streaming")
+    check_index(got, index, rows_len)
+    del got
+    out["index_launches"] = launched
+
+    # ShardedTape of the 1 GiB create tape
+    host_tape = ct.create(path, backend="cuda", device=device)
+    st = ShardedTape.from_tape(host_tape, mesh)
+    del host_tape
+    out["sharded_tape_lookups"] = check_lookups(st, data, index, rows_len,
+                                                per_block, 5150, device)
+    del st
+
+    # ShardedPackedTape of the 1 GiB table against create_packed
+    spt, launched = driven(ShardedPackedTape, data, mesh)
+    for name in ("quote_parity", "stage1_v4", "row_prefix"):
+        if launched[name] != SHARDS:
+            raise AssertionError(f"ShardedPackedTape at 1 GiB: {name} "
+                                 f"launched {launched[name]} times")
+    ref = ct.create_packed(path, device=device)
+    flat = torch.cat([w.reshape(-1) for w in spt.words])
+    n_ref = ref.words.numel()
+    if not (torch.equal(flat[:n_ref], ref.words.reshape(-1))
+            and not bool(flat[n_ref:].any())):
+        raise AssertionError("sharded words differ from create_packed's")
+    prefix = prefix_for_packed(ref.words)
+    if not (torch.equal(spt.cum_incl[:prefix.numel()], prefix)
+            and bool((spt.cum_incl[prefix.numel():] == prefix[-1]).all())):
+        raise AssertionError("sharded row prefix differs from B2's")
+    del flat, prefix, ref
+    out["packed_lookups_1GiB"] = check_lookups(spt, data, index, rows_len,
+                                               per_block, 6160, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "sharded_seq.npz")
+        spt.save(art)
+        loaded = PackedDeviceTape.load(art, data, device=device)
+        recs = torch.randint(0, REPEATS * per_block, (BATCH,),
+                             dtype=torch.int32, device=device)
+        flds = torch.randint(0, N_FIELDS, (BATCH,), dtype=torch.int32,
+                             device=device)
+        for a, b in zip(loaded.gather_fields(recs, flds, MAX_LEN),
+                        spt.gather_fields(recs, flds, MAX_LEN)):
+            if not torch.equal(a, b):
+                raise AssertionError("the loaded artifact serves other bytes")
+        del loaded
+    del spt
+
+    # the times at 1 GiB: S1 (64 MiB from graphs and eager, 1 GiB by
+    # events, beside its plain version and one library call); the builds
+    words = _to_device(data, padded_rows(size) * ROW_BYTES,
+                       device).view(torch.int32)
+    gate.same("quote_parity", _kernels.quote_parity(words, d.quote),
+              _local_parity_plain(words, d), "the 1 GiB table")
+    s1 = lambda w: _kernels.quote_parity(w, d.quote)  # noqa: E731
+    out["s1_ms_64MiB"] = graph_ms(lambda: s1(block_words), 20)
+    out["s1_eager_ms_64MiB"] = cuda_ms(lambda: s1(block_words), 20)
+    out["ms"] = cuda_ms(lambda: s1(words), 20)
+    out["plain_ms"] = cuda_ms(lambda: _local_parity_plain(words, d), 3)
+    out["library_ms"] = cuda_ms(lambda: (words.view(torch.uint8) == d.quote)
+                                .sum(dtype=torch.int32) & 1, 5)
+    out["timed_bytes"] = words.numel() * 4
+    del words
+    times["ShardedPackedTape 1 GiB"] = warm_s(
+        lambda: ShardedPackedTape(data, mesh))
+    times["create_packed 1 GiB"] = warm_s(
+        lambda: ct.create_packed(path, device=device))
+    times["build_index_sharded 1 GiB"] = warm_s(
+        lambda: build_index_sharded(data, mesh))
+    times["build_index (create's index) 1 GiB"] = warm_s(
+        lambda: ct.build_index(data, backend="cuda", device=device))
+    times["sharded streaming 1 GiB"] = warm_s(
+        lambda: build_index_sharded_streaming(path, mesh,
+                                              chunk_bytes=BLOCK_BYTES), 2)
+    del data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the headline: the 2.5 GiB table on 4 shards
+    big, header_len = big_table(block)
+    out["big_bytes"] = big.size
+    n_records = BIG_REPEATS * per_block
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tape, launched = driven(ShardedPackedTape, big, mesh)
+    out["big_first_s"] = time.perf_counter() - t0
+    for name in ("quote_parity", "stage1_v4", "row_prefix"):
+        if launched[name] != SHARDS:
+            raise AssertionError(f"ShardedPackedTape at 2.5 GiB: {name} "
+                                 f"launched {launched[name]} times")
+    out["launches"] = launched
+    for k, shard in enumerate(tape.data):
+        w = shard.view(torch.int32)
+        gate.same("quote_parity", _kernels.quote_parity(w, d.quote),
+                  _local_parity_plain(w, d), f"shard {k} of the 2.5 GiB table")
+    shard_bytes = tape.shard_rows * 512
+    if tape.record_cnt != n_records + 1 or shard_bytes >= 2**31:
+        raise AssertionError(f"2.5 GiB tape: {tape.record_cnt} records, "
+                             f"{tape.shard_rows} rows a shard")
+    # records from copy `far` on start past byte 2^31
+    far = -(-(2**31 - header_len) // rows_len)
+    start, _ = truth(index, rows_len, per_block,
+                     np.array([far * per_block]), np.array([0]))
+    if start[0] < 2**31:
+        raise AssertionError("the far records start below byte 2^31")
+    out["far_record"] = far * per_block
+    on_card("2.5 GiB lookups", lambda: check_lookups(
+        tape, big, index, rows_len, per_block, 7170, device, BIG_REPEATS))
+    on_card("2.5 GiB lookups past byte 2^31", lambda: check_lookups(
+        tape, big, index, rows_len, per_block, 7171, device, BIG_REPEATS,
+        rec_lo=far * per_block, batches=1))
+    out["big_lookups"] = check_lookups(tape, big, index, rows_len, per_block,
+                                       7172, device, BIG_REPEATS)
+    arr = np.frombuffer(block, np.uint8)
+    f1 = np.array(block_fields(arr, index, per_block, 1)).astype(np.int64)
+    ids = np.arange(per_block)
+
+    def column(r):
+        vals, ok = r
+        if not bool(ok.all()):
+            raise AssertionError("2.5 GiB column_int32(f0): a field refused")
+        same_array("2.5 GiB column_int32(f0)", vals.cpu().numpy(),
+                   np.tile(ids.astype(np.int32), BIG_REPEATS))
+
+    def grouped(g):
+        same_array("2.5 GiB group keys", g["keys"], ids.astype(np.int32))
+        same_array("2.5 GiB group counts", g["count"],
+                   np.full(per_block, BIG_REPEATS))
+        same_array("2.5 GiB group sums", g["sum"], BIG_REPEATS * f1)
+        same_array("2.5 GiB group min", g["min"], f1.astype(np.int32))
+        same_array("2.5 GiB group max", g["max"], f1.astype(np.int32))
+
+    def sql_grouped(r):
+        same_array("2.5 GiB SQL keys", np.asarray(r["f0"]).astype(np.int64),
+                   np.arange(10))
+        same_array("2.5 GiB SQL COUNT(*)", np.asarray(r["count"])
+                   .astype(np.int64), np.full(10, BIG_REPEATS))
+        same_array("2.5 GiB SQL SUM(f1)", np.asarray(r["sum_f1"])
+                   .astype(np.int64), BIG_REPEATS * f1[:10])
+
+    q = ("SELECT f0, COUNT(*), SUM(f1) FROM big GROUP BY f0"
+         f" HAVING COUNT(*) = {BIG_REPEATS} ORDER BY f0 LIMIT 10")
+    for name, fn, check in (
+            ("column_int32(f0)", lambda: tape.column_int32(0), column),
+            ("column_stats(f0)", lambda: ct.column_stats(tape, "f0"),
+             lambda st: check_stats(st, ids, "2.5 GiB column_stats(f0)",
+                                    BIG_REPEATS)),
+            ("groupby_typed(f0, f1)",
+             lambda: ct.groupby_typed(tape, "f0", "f1"), grouped),
+            ("SQL GROUP BY f0", lambda: ct.sql(q, tables={"big": tape},
+                                               device=device), sql_grouped)):
+        check(on_card(f"2.5 GiB {name}", fn))
+        times[f"2.5 GiB {name}"] = [median_s(fn)]
+    del tape
+    torch.cuda.empty_cache()
+    times["ShardedPackedTape 2.5 GiB"] = warm_s(
+        lambda: ShardedPackedTape(big, mesh))
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profiling.device_trace(trace_dir):
+            traced = ShardedPackedTape(big, mesh)
+        per, busy = _device_ops(os.path.join(trace_dir, profiling.TRACE_FILE))
+    del traced, big
+    gc.collect()
+    torch.cuda.empty_cache()
+    names = {"quote_parity": 0, "mask_pack": 0, "row_prefix_local": 0}
+    for name, (_, k) in per.items():
+        for key in names:
+            names[key] += k if key in name else 0
+    if set(names.values()) != {SHARDS}:
+        raise AssertionError(f"the 2.5 GiB build's trace: {names}")
+    # the copies the build makes: one a pinned buffer of a shard's bytes
+    # (a trace late in a long run has come back with some of them only)
+    out["trace_copies"] = (
+        sum(k for name, (_, k) in per.items() if "HtoD" in name),
+        sum(-(-min(max(out["big_bytes"] - k * shard_bytes, 0), shard_bytes)
+              // _STAGE_BYTES) for k in range(SHARDS)))
+    out["trace_busy"] = busy
+    out["trace_device_ms"] = sum(t for t, _ in per.values())
+    out["trace_top"] = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def driven(fn, *args, **kw) -> tuple:
     """fn's result and the launch counts of its run alone."""
     from csv_simd_tpu_torch import _kernels
@@ -2103,6 +2575,10 @@ def _sum(per_size: dict) -> dict:
         for k, v in launches.items():
             out[k] = out.get(k, 0) + v
     return out
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
 
 
 def need(launches: dict, name: str, at_least: int, what: str) -> None:
@@ -2639,6 +3115,33 @@ def main() -> int:
           f"distinct) on the {per_block}-row block; phase "
           f"{sq['phase_s']:.1f} s")
 
+    # phase 11: sharding (S1, parallel.sharded, parallel.serving and the
+    # sharded streaming build), gated, then timed; last, after phase 10.
+    # The earlier phases' 1 GiB tables go first, so that the host holds
+    # the 2.5 GiB table, its pinned staging and little else
+    route.pop("tape", None)
+    del packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    sh = run_sharded_path(gate, device, block, index, per_block, path,
+                          want_mask, blk["words"])
+    print(f"sharding: S1 against its plain version "
+          f"({gate.checks['quote_parity']} comparisons); sharded_stage1 at "
+          f"{', '.join(map(str, MESH_SIZES))} shards in the three layouts on "
+          f"the 64 MiB block, the 60 KB quoted span and quotes open across "
+          f"each 1 GiB cut equal to one device's words and to golden "
+          f"(launches {nonzero(sh['stage1_launches'])}); build_index_sharded "
+          f"and the sharded streaming build of the 1 GiB table equal to "
+          f"golden (streaming launches {nonzero(sh['index_launches'])}); "
+          f"ShardedTape and ShardedPackedTape at 1 GiB: lookups, words, row "
+          f"prefix and artifact checked; ShardedPackedTape of the "
+          f"{sh['big_bytes']}-byte table on {SHARDS} shards: launches "
+          f"{nonzero(sh['launches'])}, {BIG_REPEATS * per_block} records, "
+          f"lookups (from record {sh['far_record']} on past byte 2^31), "
+          f"column_int32, column_stats, groupby_typed and a SQL GROUP BY "
+          f"equal to the truth and run on the card; phase "
+          f"{sh['phase_s']:.1f} s")
+
     gb = padded_rows(size) * ROW_BYTES / 1e9
     print(f"times on {card}:")
     for name in ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
@@ -2714,6 +3217,30 @@ def main() -> int:
           f"{sq['trace_device_ms']:.3f} ms of device ops; top device ops: "
           + "; ".join(f"{name[:100]} {t:.3f} ms x{k}"
                       for name, (t, k) in sq["trace_top"]))
+
+    read_gbps = big["dma_probe2"]["read"]["gbps"]
+    s1_gb = sh["timed_bytes"] / 1e9
+    print(f"S1 (quote_parity) on {card}: 64 MiB {sh['s1_ms_64MiB']:.4f} ms "
+          f"(CUDA graph; eager {sh['s1_eager_ms_64MiB']:.4f}), 1 GiB "
+          f"{sh['ms']:.4f} ms (events; {s1_gb / sh['ms'] * 1e3:.1f} GB/s; "
+          f"its bytes at this run's read rate, {read_gbps:.1f} GB/s: "
+          f"{s1_gb / read_gbps * 1e3:.4f} ms), plain {sh['plain_ms']:.3f} ms, "
+          f"library {sh['library_ms']:.4f} ms")
+    print(f"sharded builds and serving on {card} (warm s, 3 calls after one "
+          f"untimed; streaming 2; the 2.5 GiB operations the median of 3): "
+          + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v)
+                      for k, v in sh["times"].items())
+          + f"; 2.5 GiB first build {sh['big_first_s']:.4f} s; lookups/s: "
+          f"ShardedTape 1 GiB {sh['sharded_tape_lookups']:.0f}, "
+          f"ShardedPackedTape 1 GiB {sh['packed_lookups_1GiB']:.0f}, 2.5 GiB "
+          f"{sh['big_lookups']:.0f}")
+    print(f"trace of a warm 2.5 GiB ShardedPackedTape build on {card}: "
+          f"device busy {sh['trace_busy']:.2%} of the traced window, "
+          f"{sh['trace_device_ms']:.3f} ms of device ops, "
+          f"{sh['trace_copies'][0]} of the build's {sh['trace_copies'][1]} "
+          "host-to-device copies traced; top device ops: "
+          + "; ".join(f"{name[:80]} {t:.3f} ms x{k}"
+                      for name, (t, k) in sh["trace_top"]))
 
     # phase 6 and 7 results, one line each, with the card
     for at in ("64 MiB", "1 GiB"):
@@ -2862,6 +3389,9 @@ def main() -> int:
         ("validate_utf8_device", "cuda", "utf8.cu",
          "csv_simd_tpu/ops/utf8.py:97", "utf8_errs", u8["launches"],
          "utf8_errs"),
+        ("_local_parity", "cuda", "shard_parity.cu",
+         "csv_simd_tpu/parallel/sharded.py:51", "quote_parity",
+         sh["launches"], "quote_parity"),
     )
     # the input bytes each kernel's `ms` was timed on
     gib, blk_words = padded_rows(size) * ROW_BYTES, BLOCK_BYTES
@@ -2881,6 +3411,10 @@ def main() -> int:
     # the validator's work depends on its data: its own count, at 64 MiB
     bound["utf8_errs"] = u8["bound"]
     ms["utf8_errs"], ms["utf8_errs_plain"] = u8["ms"], u8["plain_ms"]
+    # S1's: its bytes, timed on the 1 GiB table
+    bound["quote_parity"] = s1_bound(sh["timed_bytes"])
+    ms["quote_parity"], ms["quote_parity_plain"] = sh["ms"], sh["plain_ms"]
+    library_ms["quote_parity"] = sh["library_ms"]
     kernels = [
         {"name": name, "route": route_, "source": src + source,
          "replaces": replaces, "launches": launches[counter],

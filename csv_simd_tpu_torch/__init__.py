@@ -26,6 +26,12 @@ GROUP BY (query.py) and equi-joins (join.py). `sql` compiles a SELECT
 statement onto it (sql.py), with device window functions (window.py) and
 set operations (setops.py). Its entry points that build a tape take
 `device="cuda"` as `create` does.
+
+Sharding (`csv_simd_tpu_torch.parallel`) builds and serves over a mesh
+of shards (several may share one card): `sharded_stage1`,
+`build_index_sharded`, `ShardedTape` and `ShardedPackedTape`, which
+serves inputs of 2 GiB and more; `streaming.ShardedStreamingIndexBuilder`
+streams over a mesh.
 """
 
 from .api import create, create_from_bytes, create_packed

@@ -47,7 +47,8 @@ LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
             "probe_ws_packmm": 0, "probe_mosaic_mm32": 0,
             "probe_mosaic_gather": 0, "probe_mosaic_cmp8": 0,
             "probe_mosaic_select8": 0, "probe_mosaic_shift_add": 0,
-            "probe_mosaic_usum": 0, "probe_concat_mm": 0, "utf8_errs": 0}
+            "probe_mosaic_usum": 0, "probe_concat_mm": 0, "utf8_errs": 0,
+            "quote_parity": 0}
 _lib = None
 _alu_op_counts = None
 _alu_const_arrays = {}
@@ -196,6 +197,8 @@ def _library():
         lib.csv_probe_concat_mm.restype = i
         lib.csv_utf8_errs.argtypes = [vp, ll, vp, vp]
         lib.csv_utf8_errs.restype = i
+        lib.csv_quote_parity.argtypes = [vp, ll, i, vp, vp]
+        lib.csv_quote_parity.restype = i
         lib.csv_cuda_error_string.argtypes = [i]
         lib.csv_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -503,6 +506,28 @@ def utf8_errs(data: torch.Tensor) -> torch.Tensor:
     _raise_on(err, "utf8_errs")
     LAUNCHES["utf8_errs"] += 1
     return count
+
+
+def quote_parity(words: torch.Tensor, quote: int) -> torch.Tensor:
+    """Kernel S1 (csrc/shard_parity.cu) on a shard's CUDA int32 byte quads
+    (any shape, contiguous, 16-byte aligned, a positive multiple of 16
+    bytes) -> 0-d int32 parity of its bytes equal to `quote`, on the
+    words' device, with no host sync: the count
+    `parallel.sharded._local_parity_plain` takes & 1."""
+    _check_words(words, "quote_parity")
+    n_bytes = words.numel() * 4
+    if n_bytes == 0 or n_bytes % 16:
+        raise ValueError(f"quote_parity: {n_bytes} bytes is not a positive "
+                         "multiple of 16")
+    dev = words.device
+    with torch.cuda.device(dev):
+        out = torch.empty((), dtype=torch.int32, device=dev)
+        err = _library().csv_quote_parity(words.data_ptr(), n_bytes,
+                                          int(quote) & 0xFF, out.data_ptr(),
+                                          _stream(dev))
+    _raise_on(err, "quote_parity")
+    LAUNCHES["quote_parity"] += 1
+    return out
 
 
 # modes of csrc/probe_stream.cu's write kernel and csrc/probe_ablate.cu

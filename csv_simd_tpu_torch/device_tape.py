@@ -127,6 +127,18 @@ def _gather_fields(data: torch.Tensor, index: torch.Tensor,
     (N,) int32, valid (N,) bool) from the bytes and an int32 index on one
     device. Index reads clamp to the last entry, as the JAX gathers do,
     so an invalid query reads something harmless and is masked out."""
+    pos, keep, lengths, valid = _field_window(
+        index, records, fields, jump, field_cnt, record_cnt, max_len,
+        data.shape[0])
+    return torch.where(keep, data[pos], 0), lengths, valid
+
+
+def _field_window(index: torch.Tensor, records: torch.Tensor,
+                  fields: torch.Tensor, jump: int, field_cnt: int,
+                  record_cnt: int, max_len: int, n_bytes: int) -> tuple:
+    """The byte positions of a batched gather from an int32 index: (flat
+    positions (N, max_len) clamped to [0, n_bytes), the positions inside
+    a valid query's field, TRUE lengths (N,) int32, valid (N,) bool)."""
     valid = ((records >= 0) & (records + 1 < record_cnt)
              & (fields >= 0) & (fields < field_cnt))
     r = torch.where(valid, records, 0)
@@ -137,11 +149,9 @@ def _gather_fields(data: torch.Tensor, index: torch.Tensor,
     ends = index[(slots + 1).clamp(max=last)]
     lengths = torch.where(valid, ends - starts, 0)
     pos = starts[:, None] + torch.arange(max_len, dtype=torch.int32,
-                                         device=data.device)[None, :]
-    in_range = pos < ends[:, None]
-    pos = pos.clamp(0, data.shape[0] - 1)
-    out = torch.where(in_range & valid[:, None], data[pos], 0)
-    return out, lengths, valid
+                                         device=index.device)[None, :]
+    keep = (pos < ends[:, None]) & valid[:, None]
+    return pos.clamp(0, n_bytes - 1), keep, lengths, valid
 
 
 class TypedColumnsMixin:
@@ -299,8 +309,8 @@ class DeviceTape(TypedColumnsMixin):
         if idx_host.size and int(idx_host[-1]) >= 2**31:
             raise ValueError(
                 "device tape uses int32 offsets: this index addresses "
-                ">= 2 GiB; serve it from the host Tape (the sharded tape "
-                "is not ported yet)")
+                ">= 2 GiB; serve it from the host Tape or build a "
+                "parallel.serving.ShardedPackedTape")
         if isinstance(data, torch.Tensor):
             self.data = data.to(device=self.device, dtype=torch.uint8)
         else:

@@ -31,7 +31,7 @@ from .utils import as_u8
 
 _TWO_GIB_MSG = (
     "PackedDeviceTape uses int32 flat byte positions: inputs of 2 GiB or "
-    "more need the sharded tape, which is not ported yet"
+    "more need parallel.serving.ShardedPackedTape"
 )
 
 
@@ -85,18 +85,31 @@ def _kth_positions(words2d: torch.Tensor, row_cum_incl: torch.Tensor,
     scanned per query. Positions for k outside the index are unspecified,
     as in the JAX package, whose out-of-range gathers clamp."""
     rows = row_cum_incl.shape[0]
-    row = torch.searchsorted(row_cum_incl, ks, right=True, out_int32=True)
-    excl_row = torch.where(row > 0, row_cum_incl[(row - 1).clamp(min=0)], 0)
-    j = ks - excl_row  # rank within the row
+    row, j = _row_and_rank(row_cum_incl, ks)
     cols = torch.arange(16, dtype=torch.int32, device=ks.device)
     flat = words2d.reshape(-1)
     wrow = flat[row.clamp(max=rows - 1)[:, None] * 16 + cols]  # (Q, 16)
+    return row * 512 + _bit_in_row(wrow, j)
+
+
+def _row_and_rank(row_cum_incl: torch.Tensor, ks: torch.Tensor) -> tuple:
+    """(row holding the k-th set bit, k's rank within that row), int32:
+    a searchsorted on the inclusive row prefix."""
+    row = torch.searchsorted(row_cum_incl, ks, right=True, out_int32=True)
+    excl_row = torch.where(row > 0, row_cum_incl[(row - 1).clamp(min=0)], 0)
+    return row, ks - excl_row
+
+
+def _bit_in_row(wrow: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """Position (0..511) of the j-th set bit of each query's row, given
+    the row's 16 words (Q, 16): a popcount scan of the words, then a
+    rank-select inside the hit word."""
     cum = torch.cumsum(popcount32(wrow), dim=1, dtype=torch.int32)
     g = (cum <= j[:, None]).sum(dim=1, dtype=torch.int32)
     prev = torch.gather(cum, 1, (g - 1).clamp(min=0).long()[:, None])[:, 0]
     jj = j - torch.where(g > 0, prev, 0)
     w = torch.gather(wrow, 1, g.clamp(max=15).long()[:, None])[:, 0]
-    return (row * 16 + g) * 32 + _select_bit(w, jj)
+    return g * 32 + _select_bit(w, jj)
 
 
 def _serve(data, words2d, cum_incl, records, fields, jump: int,
@@ -129,6 +142,16 @@ def packed_seq_meta(header, n_bytes: int, fingerprint: str) -> dict:
         field_cnt=header.field_cnt, delimiter=header.delimiter,
         record_offset=header.record_offset, n_bytes=n_bytes,
         fingerprint=fingerprint,
+    )
+
+
+def _own_header(header) -> Header:
+    """A Header-like object (for example the JAX package's) as the
+    port's own Header."""
+    return Header(
+        names=list(header.names), new_line=NewLine(header.new_line.value),
+        field_cnt=header.field_cnt, delimiter=header.delimiter,
+        record_offset=header.record_offset,
     )
 
 
@@ -262,13 +285,8 @@ class PackedDeviceTape(TypedColumnsMixin):
         """Build a tape from another tape's state as numpy (for example
         the JAX PackedDeviceTape's words, header and bytes): packed words
         in either layout, a Header-like object and the original bytes."""
-        arr = as_u8(data)
-        own = Header(
-            names=list(header.names), new_line=NewLine(header.new_line.value),
-            field_cnt=header.field_cnt, delimiter=header.delimiter,
-            record_offset=header.record_offset,
-        )
-        return cls._from_parts(np.asarray(words), own, arr, device)
+        return cls._from_parts(np.asarray(words), _own_header(header),
+                               as_u8(data), device)
 
     @classmethod
     def _from_parts(cls, words: np.ndarray, header: Header, arr: np.ndarray,

@@ -12,6 +12,8 @@ copied to the device (`prepare`, safe to run on a worker thread so the
 copy is in flight before the scan), the stage-1 build runs with the
 parity carry chained as a device scalar (no host sync per chunk), and
 the host extraction lags `pipeline_depth` chunks behind.
+`ShardedStreamingIndexBuilder` does the same over a mesh of shards
+(parallel/sharded.py), each chunk cut into the mesh's shards.
 """
 
 from __future__ import annotations
@@ -197,6 +199,125 @@ class StreamingIndexBuilder:
         with np.load(path, allow_pickle=False) as z:
             state = {k: z[k] for k in ("parity", "offset", "index_parts")}
         return cls.from_state(state, dialect, backend, device)
+
+
+class ShardedStreamingIndexBuilder:
+    """Chunked ingestion across a mesh: streaming and sharding composed.
+
+    Each fed chunk is cut byte-wise into the mesh's shards and scanned by
+    parallel.sharded.sharded_stage1 ("fold" layout), whose exclusive
+    parity scan resolves the quote parity across the shard cuts inside
+    the chunk; the builder threads the one quote-parity carry across the
+    chunk cuts as a device scalar (no host sync a chunk), and extracts a
+    lagging chunk's words on the host with the native extractor, shard by
+    shard. The result is bit-identical to a one-shot build even where a
+    quoted region spans a chunk and a shard cut. `device` makes the
+    default mesh (one shard a visible device)."""
+
+    def __init__(self, mesh=None, dialect: Dialect = DEFAULT_DIALECT,
+                 use_pallas: Optional[bool] = None,
+                 interpret: Optional[bool] = None,
+                 pipeline_depth: int = 2, device="cuda"):
+        from .parallel.sharded import _single_process, make_mesh
+
+        self._mesh = mesh or make_mesh(device=device)
+        _single_process(self._mesh)
+        self._dialect = dialect
+        self._use_pallas = use_pallas
+        self._parity = 0  # int or device scalar
+        self._offset = 0
+        self._parts = [np.zeros(1, dtype=np.int64)]
+        self._depth = max(pipeline_depth, 1)
+        self._pending = []  # [(packed words a shard, n_bytes, base offset)]
+
+    def feed(self, chunk: bytes | np.ndarray) -> None:
+        from .parallel.sharded import (
+            _mesh_rows,
+            _upload_shards,
+            _words,
+            sharded_stage1,
+        )
+
+        arr = as_u8(chunk)
+        if arr.size == 0:
+            return
+        rows = _mesh_rows(arr.size, self._mesh.size)
+        shards = _upload_shards(arr, rows, self._mesh)
+        packed, _c, _ce, _t, parity = sharded_stage1(
+            [_words(s) for s in shards], self._parity, self._mesh,
+            self._dialect, use_pallas=self._use_pallas)
+        self._parity = parity  # device scalar: the next chunk chains on it
+        self._pending.append((packed, arr.size, self._offset))
+        self._offset += arr.size
+        while len(self._pending) > self._depth:
+            self._drain_one()
+
+    def _drain_one(self) -> None:
+        from .parallel.sharded import _fold_offsets
+
+        packed, n, base = self._pending.pop(0)
+        self._parts.extend(_fold_offsets(packed, n, base))
+
+    @property
+    def quote_parity(self) -> int:
+        return int(self._parity)
+
+    def finish(self) -> np.ndarray:
+        while self._pending:
+            self._drain_one()
+        return np.concatenate(self._parts)
+
+    # -- checkpoint/resume: the parity bit, the byte offset and the
+    #    partial index restart an interrupted ingest exactly; the file
+    #    format is the JAX package's --
+
+    def state_dict(self) -> dict:
+        while self._pending:
+            self._drain_one()
+        return {
+            "parity": int(self._parity),
+            "offset": self._offset,
+            "index_parts": np.concatenate(self._parts),
+        }
+
+    @classmethod
+    def from_state(cls, state: dict, mesh=None, dialect=None,
+                   use_pallas=None, interpret=None, device="cuda"):
+        b = cls(mesh, dialect or DEFAULT_DIALECT, use_pallas, interpret,
+                device=device)
+        b._parity = int(state["parity"])
+        b._offset = int(state["offset"])
+        b._parts = [np.asarray(state["index_parts"], dtype=np.int64)]
+        return b
+
+    def save(self, path) -> None:
+        np.savez_compressed(path, **self.state_dict())
+
+    @classmethod
+    def load(cls, path, mesh=None, dialect=None, use_pallas=None,
+             interpret=None, device="cuda"):
+        with np.load(path, allow_pickle=False) as z:
+            state = {k: z[k] for k in ("parity", "offset", "index_parts")}
+        return cls.from_state(state, mesh, dialect, use_pallas, interpret,
+                              device)
+
+
+def build_index_sharded_streaming(
+    source: Union[str, os.PathLike, BinaryIO, Iterable[bytes]],
+    mesh=None,
+    dialect: Dialect = DEFAULT_DIALECT,
+    chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+    use_pallas: Optional[bool] = None,
+    interpret: Optional[bool] = None,
+    device="cuda",
+) -> np.ndarray:
+    """Streamed and sharded build -> host int64 index with the 0
+    sentinel, bit-identical to golden and the one-shot builds."""
+    b = ShardedStreamingIndexBuilder(mesh, dialect, use_pallas, interpret,
+                                     device=device)
+    for chunk in _iter_chunks(source, chunk_bytes):
+        b.feed(chunk)
+    return b.finish()
 
 
 def build_index_streaming(

@@ -1,8 +1,14 @@
 """The port's public names against the JAX package's: every name the JAX
-package exports is exported by the port. The names of OWN_OBJECTS, which
+package exports is exported by the port, and the sharding modules
+(parallel.sharded, parallel.serving) and streaming define the JAX
+modules' public names. The names of OWN_OBJECTS, which
 the port defines in its own copies of the host, relational and SQL
 modules, are its own objects, and its constants have the JAX package's
 values."""
+
+import importlib
+import inspect
+import re
 
 import numpy as np
 import pytest
@@ -66,3 +72,36 @@ def test_exported_names_behave_as_the_jax_ones():
             assert [(b.start, b.len) for b in got] == \
                 [(b.start, b.len) for b in want]
     assert [m.name for m in pt.NewLine] == [m.name for m in jx.NewLine]
+
+
+# the port's names beyond the JAX module's: Mesh is the port's mesh (the
+# JAX module imports jax.sharding.Mesh)
+MODULE_EXTRA = {"parallel.sharded": {"Mesh"}, "parallel.serving": set(),
+                "streaming": set()}
+
+
+def _defined(mod) -> set:
+    """The public functions and classes a module defines itself (not the
+    names it imports; a jitted function counts), and the upper-case
+    constants its source assigns at the top level."""
+    out = {name for name, obj in vars(mod).items()
+           if not name.startswith("_") and callable(obj)
+           and getattr(obj, "__module__", None) == mod.__name__}
+    src = inspect.getsource(mod)
+    out |= set(re.findall(r"^([A-Z][A-Z0-9_]*)\s*=", src, re.M))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(MODULE_EXTRA))
+def test_module_names_match_the_jax_module(name):
+    jmod = importlib.import_module(f"csv_simd_tpu.{name}")
+    pmod = importlib.import_module(f"csv_simd_tpu_torch.{name}")
+    want = _defined(jmod)
+    assert _defined(pmod) - want == MODULE_EXTRA[name]
+    assert want <= _defined(pmod), want - _defined(pmod)
+    for n in want:
+        obj = getattr(pmod, n)
+        if callable(obj):
+            assert obj.__module__ == pmod.__name__, n
+        else:
+            assert obj == getattr(jmod, n), n

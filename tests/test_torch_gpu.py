@@ -1598,10 +1598,30 @@ def test_sql_leaves_no_large_tensor_on_the_cpu(cuda_device, monkeypatch):
     whose output has more than 4,096 elements runs on the card (copies
     between devices aside). The tapes are built first: a build stages
     its bytes in pinned host memory."""
+    from csv_simd_tpu_torch import setops, window
+
+    monkeypatch.setattr(window, "DEVICE_WINDOW_MIN_ROWS", 1)
+    monkeypatch.setattr(setops, "DEVICE_SETOP_MIN_ROWS", 1)
+    from csv_simd_tpu_torch.frame import _resolve_tape
+
+    data = relational_csv(12, 6000)
+    for engine in ("offsets", "packed"):
+        tape, _ = _resolve_tape(data, None, "auto", engine, False,
+                                cuda_device)
+        for q in SQL_STATEMENTS:
+            with _watch() as w:
+                ct.sql(q, tape, tables={"a": tape, "b": tape},
+                       schema=REL_SCHEMA, right_schema=REL_SCHEMA,
+                       device=cuda_device)
+            assert w.cuda_ops and not w.cpu_ops, (engine, q, w.cpu_ops[:5])
+
+
+def _watch():
+    """A TorchDispatchMode that counts the aten ops whose outputs lie on
+    the card and records every op that leaves a tensor of more than 4,096
+    elements on the CPU (copies between devices aside)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
-
-    from csv_simd_tpu_torch import setops, window
 
     crossing = {"_to_copy", "copy_", "lift_fresh", "detach", "alias"}
 
@@ -1622,17 +1642,197 @@ def test_sql_leaves_no_large_tensor_on_the_cpu(cuda_device, monkeypatch):
                         self.cpu_ops.append((name, tuple(t.shape)))
             return out
 
-    monkeypatch.setattr(window, "DEVICE_WINDOW_MIN_ROWS", 1)
-    monkeypatch.setattr(setops, "DEVICE_SETOP_MIN_ROWS", 1)
-    from csv_simd_tpu_torch.frame import _resolve_tape
+    return Watch()
 
-    data = relational_csv(12, 6000)
-    for engine in ("offsets", "packed"):
-        tape, _ = _resolve_tape(data, None, "auto", engine, False,
-                                cuda_device)
-        for q in SQL_STATEMENTS:
-            with Watch() as w:
-                ct.sql(q, tape, tables={"a": tape, "b": tape},
-                       schema=REL_SCHEMA, right_schema=REL_SCHEMA,
-                       device=cuda_device)
-            assert w.cuda_ops and not w.cpu_ops, (engine, q, w.cpu_ops[:5])
+
+# ------------------------------------------------------------ sharding
+
+def _quote_bytes(n_bytes: int, density: float, quote: int,
+                 seed: int) -> np.ndarray:
+    """Random bytes with no `quote`, then `quote` at a share `density` of
+    the positions."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 256, n_bytes, dtype=np.uint8)
+    b = np.where(b == quote, quote ^ 1, b)
+    return np.where(rng.random(n_bytes) < density, quote, b).astype(np.uint8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 16, 24, 520, 1024, 4104, 70_001])
+def test_shard_parity_kernel_matches_plain(cuda_device, rows):
+    """S1 against its plain version on shards of 8 to 70,001 rows, quote
+    densities 0, 1/64 and 1/2, three quote bytes."""
+    from csv_simd_tpu_torch.parallel.sharded import _local_parity_plain
+
+    for density in (0.0, 1 / 64, 0.5):
+        for quote in (0x22, 0x27, 0xA2):
+            b = _quote_bytes(rows * 512, density, quote, rows)
+            w = torch.from_numpy(b.view(np.int32).copy())
+            want = int(_local_parity_plain(w, Dialect(quote=quote)))
+            before = _kernels.launch_counts()["quote_parity"]
+            got = _kernels.quote_parity(w.to(cuda_device), quote)
+            assert got.dtype == torch.int32 and got.dim() == 0
+            assert got.device.type == "cuda"
+            assert int(got) == want == int((b == quote).sum() & 1)
+            assert _kernels.launch_counts()["quote_parity"] == before + 1
+
+
+@pytest.mark.gpu
+def test_shard_parity_kernel_at_its_edges(cuda_device):
+    """One quote at the first and the last byte of sizes at the kernel's
+    block and grid-step edges (1,024 chunks of 16 bytes a block step;
+    8 blocks an SM a grid step), and an even count spread over both."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    step = 8 * sms * 1024
+    for chunks in (1, 2, 1023, 1024, 1025, 4097, step - 1, step, step + 1,
+                   4 * step + 3):
+        n = 16 * chunks
+        for at in (0, n - 1, n // 2):
+            b = np.zeros(n, np.uint8)
+            b[at] = 0x22
+            t = torch.from_numpy(b).to(cuda_device).view(torch.int32)
+            assert int(_kernels.quote_parity(t, 0x22)) == 1, (chunks, at)
+        b[0] = 0x22  # with b[n // 2] (b[n - 1] too when n == 1)
+        t = torch.from_numpy(b).to(cuda_device).view(torch.int32)
+        assert int(_kernels.quote_parity(t, 0x22)) == int(
+            (b == 0x22).sum() & 1), chunks
+
+
+@pytest.mark.gpu
+def test_shard_parity_kernel_rejects_bad_input(cuda_device):
+    w = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.quote_parity(w, 0x22)
+    with pytest.raises(ValueError, match="int32"):
+        _kernels.quote_parity(w.to(cuda_device).to(torch.int64), 0x22)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        _kernels.quote_parity(w[:2].to(cuda_device), 0x22)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        _kernels.quote_parity(w[:0].to(cuda_device), 0x22)
+
+
+def _spanning_table(n_rows: int = 6000, seed: int = 8) -> bytes:
+    """A 16-field table with a quoted field of about 40 KB, which crosses
+    several shard cuts, and non-ASCII bytes."""
+    rows = synthetic_wide_table(n_rows * 90, seed=seed).split(b"\n")
+    span = b'"' + b"x,y\n" * 10_000 + b'"'
+    rows[len(rows) // 3] = b",".join([span] + [b"\xc3\xa9"] * 15)
+    return b"\n".join(rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["fold", "seq", "seq_wide"])
+@pytest.mark.parametrize("n", [1, 3, 4, 8])
+def test_sharded_stage1_on_card_matches_cpu(cuda_device, n, layout):
+    """Every output of sharded_stage1 on a CUDA mesh (S1 and B1 or B3 a
+    shard) against the same call on a CPU mesh, with a device carry."""
+    from csv_simd_tpu_torch.parallel.sharded import (
+        make_mesh,
+        pad_words_for_mesh,
+        sharded_stage1,
+    )
+
+    arr = np.frombuffer(_spanning_table(), np.uint8)
+    w2d = torch.from_numpy(pad_words_for_mesh(arr, n))
+    if layout == "seq_wide":
+        w2d = w2d.view(-1, 1024)
+    cpu = sharded_stage1(w2d, 1, make_mesh(n, device="cpu"),
+                         use_pallas=True, layout=layout,
+                         count_nonascii=True)
+    _kernels.reset_launch_counts()
+    got = sharded_stage1(w2d.to(cuda_device),
+                         torch.ones((), dtype=torch.int32, device=cuda_device),
+                         make_mesh(n), layout=layout, count_nonascii=True)
+    launches = _kernels.launch_counts()
+    assert launches["quote_parity"] == n
+    kernel = "stage1_fold" if layout == "fold" else "stage1_v4"
+    assert launches[kernel] == n
+    assert len(got[0]) == n and all(p.is_cuda for p in got[0])
+    for a, b in zip(got[0], cpu[0]):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(got[1:], cpu[1:]):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4, 5])
+def test_sharded_tapes_and_builds_on_card_match_cpu(cuda_device, n):
+    """ShardedPackedTape (S1, B1 and B2 once a shard), ShardedTape,
+    build_index_sharded and the sharded streaming build on a CUDA mesh
+    against a CPU mesh and golden."""
+    from csv_simd_tpu_torch.parallel.serving import (
+        ShardedPackedTape,
+        ShardedTape,
+    )
+    from csv_simd_tpu_torch.parallel.sharded import (
+        build_index_sharded,
+        make_mesh,
+    )
+    from csv_simd_tpu_torch.streaming import build_index_sharded_streaming
+
+    data = _spanning_table()
+    want_index = golden.structural_index(data)
+    _kernels.reset_launch_counts()
+    gpu = ShardedPackedTape(data, make_mesh(n), validate_utf8=True)
+    launches = _kernels.launch_counts()
+    for name in ("quote_parity", "stage1_v4", "row_prefix"):
+        assert launches[name] == n, (name, launches)
+    cpu = ShardedPackedTape(data, make_mesh(n, device="cpu"),
+                            validate_utf8=True)
+    assert gpu.nonascii_count == cpu.nonascii_count > 0
+    assert (gpu.record_cnt, gpu.shard_rows) == (cpu.record_cnt,
+                                                 cpu.shard_rows)
+    assert torch.equal(torch.cat([w.reshape(-1) for w in gpu.words]).cpu(),
+                       torch.cat([w.reshape(-1) for w in cpu.words]))
+    assert torch.equal(gpu.cum_incl.cpu(), cpu.cum_incl)
+    rng = np.random.default_rng(n)
+    recs = np.concatenate([rng.integers(0, gpu.num_data_records, 2000),
+                           [-1, gpu.num_data_records, 0]]).astype(np.int32)
+    flds = np.concatenate([rng.integers(0, 16, 2000),
+                           [0, 0, 16]]).astype(np.int32)
+    host = ct.create_from_bytes(data, backend="golden")
+    offsets = ShardedTape.from_tape(host, make_mesh(n))
+    offsets_cpu = ShardedTape.from_tape(host, make_mesh(n, device="cpu"))
+    for max_len in (8, 64, 50_000):
+        want = cpu.gather_fields(recs, flds, max_len)
+        for t in (gpu, offsets, offsets_cpu):
+            got = t.gather_fields(recs, flds, max_len)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b), max_len
+    vals, ok = gpu.column_int32(0)
+    cvals, cok = cpu.column_int32(0)
+    assert torch.equal(vals.cpu(), cvals) and torch.equal(ok.cpu(), cok)
+    _kernels.reset_launch_counts()
+    got = build_index_sharded(data, make_mesh(n))
+    assert _kernels.launch_counts()["quote_parity"] == n
+    assert _kernels.launch_counts()["stage1_fold"] == n
+    np.testing.assert_array_equal(got, want_index)
+    np.testing.assert_array_equal(
+        build_index_sharded_streaming([data[i:i + 65_536] for i in
+                                       range(0, len(data), 65_536)],
+                                      make_mesh(n)), want_index)
+
+
+@pytest.mark.gpu
+def test_sharded_column_leaves_no_large_tensor_on_the_cpu(cuda_device):
+    """column_int32 and a gather over the card's ShardedPackedTape and
+    ShardedTape: every op with a large output runs on the card (the
+    tapes are built first: a build stages its bytes in pinned memory)."""
+    from csv_simd_tpu_torch.parallel.serving import (
+        ShardedPackedTape,
+        ShardedTape,
+    )
+    from csv_simd_tpu_torch.parallel.sharded import make_mesh
+
+    data = synthetic_wide_table(1 << 20)
+    host = ct.create_from_bytes(data, backend="golden")
+    for tape in (ShardedPackedTape(data, make_mesh(4)),
+                 ShardedTape.from_tape(host, make_mesh(4))):
+        with _watch() as w:
+            vals, ok = tape.column_int32(0)
+            stats = ct.column_stats(tape, 0)
+        assert w.cuda_ops and not w.cpu_ops, w.cpu_ops[:5]
+        n = host.num_data_records
+        assert bool(ok.all()) and stats.count == n
+        assert np.array_equal(vals.cpu().numpy(),
+                              np.array(host.column(0)).astype(np.int32))

@@ -65,6 +65,13 @@ sys.modules['csv_simd_tpu_torch.window'].DEVICE_WINDOW_MIN_ROWS = 1
 r = ct.sql('SELECT id, ROW_NUMBER() OVER (ORDER BY id DESC) AS r FROM t',
            data, device='cpu')
 assert r['r'].tolist() == [3, 2, 1], r['r']
+from csv_simd_tpu_torch.parallel.serving import ShardedPackedTape
+from csv_simd_tpu_torch.parallel.sharded import build_index_sharded, make_mesh
+mesh = make_mesh(2, device='cpu')
+assert np.array_equal(build_index_sharded(data, mesh), want)
+st = ShardedPackedTape(data, mesh)
+o, ln, v = st.gather_fields(np.array([2, 1]), np.array([1, 1]))
+assert st.to_host_lists(o, ln, v) == [b'z', b'"a\nb"'], st.to_host_lists(o, ln, v)
 ct.save_tape(t, str(here / 'idx.npz'))
 back = ct.load_tape(str(here / 'idx.npz'), data)
 assert np.array_equal(back.index, want)
@@ -79,8 +86,9 @@ print('ok')
 def test_port_copied_alone_runs_without_jax(tmp_path):
     """The package copied alone (no csv_simd_tpu beside it, jax and
     csv_simd_tpu blocked) imports and, on the CPU, runs create_from_bytes,
-    create with native extraction, golden, an artifact round trip and a
-    SQL window statement on the device path;
+    create with native extraction, golden, an artifact round trip, a
+    SQL window statement on the device path, and a 2-shard sharded
+    build and lookup (parallel.sharded, parallel.serving);
     the native library builds under its own _build/."""
     shutil.copytree(PORT, tmp_path / "csv_simd_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
