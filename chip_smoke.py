@@ -186,6 +186,26 @@ Phases, each of which fails the run on any error:
    one library call), the sharded builds' warm times beside
    create_packed's and create's index, lookups/s of both sharded tapes,
    and a torch.profiler trace of a warm 2.5 GiB build.
+12. the JSON stage-1 and the CLI, last, after phase 11: J1
+   (csrc/json_stage1.cu) against its plain version, bit for bit, on the
+   JSON tests' cases, backslash runs of 0-70 before a quote, runs that
+   end around its warp steps, segments and blocks, runs a whole cut
+   long, a string across many segments and 256 MiB of the random JSON
+   alphabet; then on a seeded 64 MiB block of newline-delimited JSON
+   records (escaped quotes and backslash runs in their strings) and on
+   1 GiB of it tiled 16 times, equal to the plain version's result on
+   the block, tiled; J1 timed at 64 MiB and 1 GiB beside its plain
+   version; then the CLI (`csv_simd_tpu_torch.__main__.main`) on the
+   card, every subcommand once under the launch counts and the dispatch
+   watch (host staging allocations allowed): info, field, record,
+   column --type int32 and json-index at 1 GiB (the table above and the
+   JSON), --validate-utf8 info, index in both formats, serve from each,
+   frame, values, stats, describe, groupby, join and sql on the 64 MiB
+   block, each output held against the truth from the block's golden
+   index, and B3, B1 with B2, the validator and J1 each launched by the
+   command that reaches it; last `python -m csv_simd_tpu_torch info`
+   of the 1 GiB table in a process of its own, its output equal to the
+   in-process one's and no jax or csv_simd_tpu in its modules.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -249,7 +269,8 @@ GATED = ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
          "mosaic_probes.matmul32_roll", "mosaic_probes.int8_lane_gather",
          "mosaic_probes.cmp8", "mosaic_probes.select8",
          "mosaic_probes.sublane_concat", "mosaic_probes.unsigned_reduce",
-         "widestore_probe4.concat_mm", "utf8_errs", "quote_parity")
+         "widestore_probe4.concat_mm", "utf8_errs", "quote_parity",
+         "json_stage1")
 # the gather reads 64 of each input row's 512 bytes; a pack product's
 # work is its multiply-adds, which its plain version's op count misses
 READS_AN_EIGHTH = ("widestore_probe2.s8_st16",)
@@ -1493,16 +1514,18 @@ REL_LIKE = "%comma 12%"
 WATCH_ELEMS = 4096  # a CPU tensor larger than this in a device op fails
 
 
-def device_watch():
+def device_watch(allow=()):
     """A TorchDispatchMode that counts the aten ops whose outputs lie on
     the card and records every op that leaves a tensor of more than
     WATCH_ELEMS elements on the CPU, other than a copy between devices,
     host data entering torch or an alias of a host copy (`.numpy()`
-    detaches it): a step of the relational layer that ran on the host."""
+    detaches it), or an op named in `allow`: a step of the relational
+    layer that ran on the host."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
 
-    crossing = {"_to_copy", "copy_", "lift_fresh", "detach", "alias"}
+    crossing = {"_to_copy", "copy_", "lift_fresh", "detach",
+                "alias"} | set(allow)
 
     class Watch(TorchDispatchMode):
         def __init__(self):
@@ -1525,12 +1548,13 @@ def device_watch():
     return Watch()
 
 
-def on_card(what: str, fn):
-    """fn() once under device_watch: fails if it ran no op on the card or
-    left a large tensor on the CPU; returns fn's result."""
-    with device_watch() as w:
+def on_card(what: str, fn, allow=(), card_ops: bool = True):
+    """fn() once under device_watch(allow): fails if it ran no op on the
+    card (unless card_ops is False) or left a large tensor on the CPU;
+    returns fn's result."""
+    with device_watch(allow) as w:
         out = fn()
-    if w.cuda_ops == 0 or w.cpu_ops:
+    if (card_ops and w.cuda_ops == 0) or w.cpu_ops:
         raise AssertionError(f"{what}: {w.cuda_ops} ops on the card, on the "
                              f"CPU {w.cpu_ops[:5]}")
     return out
@@ -2558,6 +2582,331 @@ def run_sharded_path(gate: Gate, device, block: bytes, index: np.ndarray,
     return out
 
 
+JSON_SEED = 1515            # the JSON block's and the random bytes' seed
+JSON_RANDOM_BYTES = 256 << 20
+# a command built from a file allocates host staging buffers for its
+# uploads and downloads (pinned `empty`), which compute nothing
+HOST_STAGING = ("empty",)
+
+
+def gate_json(gate: Gate, device) -> None:
+    """J1 against its plain version on the card, bit for bit: the JSON
+    tests' cases, backslash runs of 0-70 before a quote, runs that end
+    around J1's warp steps, segments and blocks, runs of a whole cut of
+    backslashes, a string across many segments, and the random JSON
+    alphabet at sizes around those cuts and at 256 MiB."""
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.experiments.json_device import _depths_plain
+    from json_cases import CASES, escape_runs, random_alphabet, straddling
+
+    inputs = [(f"case {i}", c) for i, c in enumerate(CASES) if c]
+    inputs += [(f"run of {k}", c) for k, c in enumerate(escape_runs(70))]
+    inputs += straddling()
+    inputs += [(f"random {n}", random_alphabet(n, n)) for n in
+               (1, 3, 4, 5, 127, 128, 129, 16_383, 16_384, 16_385, 1 << 20)]
+    inputs.append(("random 256 MiB", random_alphabet(JSON_RANDOM_BYTES,
+                                                     JSON_SEED)))
+    for what, data in inputs:
+        arr = data if isinstance(data, np.ndarray) else np.frombuffer(
+            data, np.uint8)
+        t = torch.from_numpy(arr.copy()).to(device)
+        mask, depth = _kernels.json_stage1(t)
+        want = _depths_plain(t)
+        gate.same("json_stage1", mask, want[0], f"{what} mask")
+        gate.same("json_stage1", depth, want[1], f"{what} depth")
+        del t, mask, depth, want
+
+
+def j1_bound(n_bytes: int) -> tuple:
+    """J1's bound on n bytes (bound() entry: ms, by, bytes moved,
+    operations, rate): it reads the bytes once and writes 8 bytes a byte
+    (the int32 mask and depth); its operations are its plain version's a
+    byte (counted on 256 KiB of the random JSON alphabet on the CPU)
+    times n."""
+    from csv_simd_tpu_torch.experiments.json_device import _depths_plain
+    from json_cases import random_alphabet
+
+    sample = torch.from_numpy(random_alphabet(256 << 10, JSON_SEED))
+    ops = plain_work(lambda: _depths_plain(sample))[0] / sample.numel() \
+        * n_bytes
+    moved = 9 * n_bytes
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", moved, ops,
+            INT32_OPS_PER_S)
+
+
+def cli_on_card(argv: list, kernels=(), card_ops: bool = True) -> tuple:
+    """The port's CLI `main(["--device", "cuda", *argv])` in this process,
+    once under the dispatch watch, with the launch counts set to 0 just
+    before it and read just after: (stdout, launch counts). Fails unless
+    it returns 0 and each kernel named was launched."""
+    import contextlib
+    import io
+
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.__main__ import main as cli
+
+    buf = io.StringIO()
+
+    def call():
+        with contextlib.redirect_stdout(buf):
+            return cli(["--device", "cuda", *argv])
+
+    _kernels.reset_launch_counts()
+    rc = on_card(f"the CLI's {argv[0]}", call, HOST_STAGING, card_ops)
+    torch.cuda.synchronize()
+    launched = _kernels.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"CLI {argv}: exit {rc}")
+    for k in kernels:
+        need(launched, k, 1, f"the CLI's {' '.join(argv)}")
+    return buf.getvalue(), launched
+
+
+def expect(what: str, got: str, want: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: printed {got[:300]!r}, want "
+                             f"{want[:300]!r}")
+
+
+def run_json_cli_path(gate: Gate, device, block: bytes, index: np.ndarray,
+                      per_block: int, path: str) -> dict:
+    """Phase 12: J1 gated against its plain version, then on 1 GiB of JSON
+    (a seeded 64 MiB block of records tiled 16 times) against the plain
+    version on the block, tiled, and timed; then the CLI on the card,
+    every subcommand once in this process under the launch counts and
+    the dispatch watch, each output held against the truth (the 1 GiB
+    table and the JSON for info, field, record, column and json-index;
+    the 64 MiB block for the rest); then one `python -m
+    csv_simd_tpu_torch info` of the 1 GiB table in a process of its own,
+    which must not import jax or csv_simd_tpu."""
+    import subprocess
+
+    from csv_simd_tpu_torch import _kernels, decode_field
+    from csv_simd_tpu_torch.experiments.json_device import _depths_plain
+    from csv_simd_tpu_torch.tools._common import cuda_ms
+    from json_cases import json_lines
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    gate_json(gate, device)
+
+    # the JSON: a 64 MiB block of records, and 1 GiB of it tiled
+    jblock = json_lines(BLOCK_BYTES, JSON_SEED)
+    if not jblock.endswith(b"\n"):
+        raise AssertionError("the JSON block does not end a record")
+    jt = torch.from_numpy(np.frombuffer(jblock, np.uint8).copy()).to(device)
+    bm, bd = _depths_plain(jt)
+    mask, depth = _kernels.json_stage1(jt)
+    gate.same("json_stage1", mask, bm, "the 64 MiB JSON block's mask")
+    gate.same("json_stage1", depth, bd, "the 64 MiB JSON block's depth")
+    if int(bd[-1]) != 0:
+        raise AssertionError(f"the JSON block ends at depth {int(bd[-1])}")
+    big = jt.repeat(REPEATS)
+    mask, depth = _kernels.json_stage1(big)
+    # tiled, the block must give its own result again: it ends at depth
+    # 0, outside strings, with no backslash run open
+    for got, want, name in ((mask, bm, "mask"), (depth, bd, "depth")):
+        if not torch.equal(got.view(REPEATS, -1),
+                           want.expand(REPEATS, -1)):
+            raise AssertionError(f"J1 on 1 GiB of JSON: the {name} differs "
+                                 "from the plain version's on the block, "
+                                 "tiled")
+    gate.record("json_stage1", {"checks": 2, "max_abs_err": 0})
+    del mask, depth
+    out["json_bytes"] = big.numel()
+    out["ms"] = cuda_ms(lambda: _kernels.json_stage1(jt), 20)
+    out["plain_ms"] = cuda_ms(lambda: _depths_plain(jt), 3)
+    out["ms_1GiB"] = cuda_ms(lambda: _kernels.json_stage1(big), 10)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["plain_ms_1GiB"] = cuda_ms(lambda: _depths_plain(big), 2)
+    out["plain_peak_gb_1GiB"] = torch.cuda.max_memory_allocated() / 1e9
+    out["timed_bytes"] = jt.numel()
+    del big
+    torch.cuda.empty_cache()
+    offs = torch.nonzero(bm).reshape(-1)
+    n_struct = offs.numel()
+    offs_h = offs[:40].cpu().numpy()
+    dep_h = bd[offs[:40]].cpu().numpy()
+    del jt, bm, bd, offs
+    jpath = os.path.join(tempfile.gettempdir(),
+                         f"csv_simd_torch_smoke_{REPEATS}x.json")
+    with open(jpath, "wb") as f:
+        for _ in range(REPEATS):
+            f.write(jblock)
+
+    # the truth of the CSV commands, from the block's golden index
+    data = np.memmap(path, dtype=np.uint8, mode="r")
+    arr = np.frombuffer(block, np.uint8)
+    rows_len = len(block) - (block.index(b"\n") + 1)
+    n = REPEATS * per_block
+    f1 = np.array(block_fields(arr, index, per_block, 1)).astype(np.int64)
+    f2 = np.array(block_fields(arr, index, per_block, 2)).astype(np.int64)
+    f3 = [decode_field(v).decode() for v in
+          block_fields(arr, index, per_block, 3)]
+    header = ", ".join(f"f{k}" for k in range(N_FIELDS))
+    tmp = tempfile.gettempdir()
+    block_path = os.path.join(tmp, "csv_simd_torch_smoke_cli_block.csv")
+    with open(block_path, "wb") as f:
+        f.write(block)
+    t_cli = time.perf_counter()
+
+    def big_field(rec: int, fld: int) -> str:
+        s, e = truth(index, rows_len, per_block, np.array([rec]),
+                     np.array([fld]))
+        return bytes(data[s[0]:e[0]]).decode()
+
+    def block_field(rec: int, fld: int) -> str:
+        s, e = truth(index, 0, per_block, np.array([rec]), np.array([fld]))
+        return block[s[0]:e[0]].decode()
+
+    # at 1 GiB: info, field, record, column --type int32 (B3), json-index
+    # (J1)
+    got, out["launches"]["info"] = cli_on_card(["info", path],
+                                               ("stage1_fold",))
+    lines = got.splitlines()
+    if lines[1:] != [f"header: {header}", f"data records: {n}"] or \
+            f"records={n + 1}, fields={N_FIELDS}" not in lines[0]:
+        raise AssertionError(f"CLI info: {lines}")
+    info_out = got
+    rec = (REPEATS - 3) * per_block + per_block // 3
+    got, _ = cli_on_card(["field", path, str(rec), "5"], ("stage1_fold",))
+    expect("CLI field", got, big_field(rec, 5) + "\n")
+    got, _ = cli_on_card(["record", path, str(rec)], ("stage1_fold",))
+    s, _e = truth(index, rows_len, per_block, np.array([rec]),
+                  np.array([0]))
+    _s, e = truth(index, rows_len, per_block, np.array([rec]),
+                  np.array([N_FIELDS - 1]))
+    expect("CLI record", got, bytes(data[s[0]:e[0]]).decode() + "\n")
+    got, out["launches"]["column"] = cli_on_card(
+        ["column", path, "1", "--type", "int32", "--limit", "25"],
+        ("stage1_fold",))
+    expect("CLI column --type int32", got,
+           "".join(f"{v}\n" for v in f1[:25]))
+    got, launched = cli_on_card(["json-index", jpath, "--limit", "40"],
+                                ("json_stage1",))
+    if launched["json_stage1"] != 1:
+        raise AssertionError(f"CLI json-index: J1 launched "
+                             f"{launched['json_stage1']} times")
+    out["launches"]["json-index"] = launched
+    expect("CLI json-index", got,
+           f"{REPEATS * n_struct} structural chars\n" + "".join(
+               f"  @{int(o):>8d} {chr(jblock[o])!r} depth={int(d)}\n"
+               for o, d in zip(offs_h, dep_h)))
+    del data
+
+    # on the 64 MiB block: the validator, both artifacts and serve, and
+    # the relational commands
+    got, out["launches"]["--validate-utf8 info"] = cli_on_card(
+        ["--validate-utf8", "info", block_path], ("stage1_fold", "utf8_errs"))
+    if f"data records: {per_block}" not in got:
+        raise AssertionError(f"CLI --validate-utf8 info: {got}")
+    arts = {fmt: os.path.join(tmp, f"csv_simd_torch_smoke_{fmt}.npz")
+            for fmt in ("offsets", "packed_seq")}
+    got, out["launches"]["index"] = cli_on_card(
+        ["index", block_path, "-o", arts["offsets"]], ("stage1_fold",))
+    expect("CLI index", got,
+           f"wrote {arts['offsets']}: {index.size} index entries\n")
+    got, out["launches"]["index packed_seq"] = cli_on_card(
+        ["index", block_path, "-o", arts["packed_seq"], "--format",
+         "packed_seq"], ("stage1_v4", "row_prefix"))
+    expect("CLI index --format packed_seq", got,
+           f"wrote {arts['packed_seq']}: packed_seq bitmask, "
+           f"{per_block + 1} records\n")
+    for fmt, art in arts.items():
+        # serve reads the artifact and the bytes on the host, as the JAX
+        # CLI's does: no op on the card
+        for r, f in ((0, 0), (per_block - 1, 3), (per_block // 2, 15)):
+            got, _ = cli_on_card(["serve", block_path, "--from-index", art,
+                                  str(r), str(f)], card_ops=False)
+            expect(f"CLI serve ({fmt})", got, block_field(r, f) + "\n")
+        os.remove(art)
+    keep = np.flatnonzero(f1 < 1_000_000)
+    got, _ = cli_on_card(["frame", block_path, "--columns", "f0,f1,f3",
+                          "--where", "f1 < 1000000", "--limit", "5"],
+                         ("stage1_fold",))
+    expect("CLI frame", got, (
+        f"Frame(records={keep.size}, columns=[f0:int32, f1:int32, f3:str])\n"
+        f"  f0 [int32]: {', '.join(str(v) for v in keep[:5])}\n"
+        f"  f1 [int32]: {', '.join(str(f1[v]) for v in keep[:5])}\n"
+        f"  f3 [str]: {', '.join(f3[v] for v in keep[:5])}\n"))
+    keys, counts = np.unique(np.array(f3, object), return_counts=True)
+    got, _ = cli_on_card(["values", block_path, "f3", "--limit", "3"],
+                         ("stage1_fold",))
+    expect("CLI values", got, f"{keys.size} distinct values\n" + "".join(
+        f"  {keys[i]}: {counts[i]}\n" for i in range(3)))
+    got, _ = cli_on_card(["stats", block_path, "f1"], ("stage1_fold",))
+    st = json.loads(got)
+    if (st["count"], st["ok_count"], st["sum"], st["min"], st["max"]) != (
+            per_block, per_block, int(f1.sum()), int(f1.min()),
+            int(f1.max())):
+        raise AssertionError(f"CLI stats: {st}")
+    got, _ = cli_on_card(["describe", block_path, "--columns", "f1,f2"],
+                         ("stage1_fold",))
+    for name, vals, line in zip(("f1", "f2"), (f1, f2), got.splitlines()):
+        if not (line.startswith(f"  {name} [int32]: n={per_block} "
+                                f"ok={per_block} ")
+                and f" min={vals.min()} " in line
+                and line.endswith(f" max={vals.max()}")):
+            raise AssertionError(f"CLI describe {name}: {line}")
+    got, _ = cli_on_card(["groupby", block_path, "f0", "f1", "--limit", "3"],
+                         ("stage1_fold",))
+    expect("CLI groupby", got, f"{per_block} groups (key ascending)\n"
+           + "".join(f"  {i}: sum={f1[i]} min={f1[i]} max={f1[i]} "
+                     "count=1\n" for i in range(3)))
+    got, _ = cli_on_card(["join", block_path, block_path, "f0", "--columns",
+                          "f0,f1", "--right-columns", "f2", "--limit", "3"],
+                         ("stage1_fold",))
+    lines = got.splitlines()
+    if not (lines[0].startswith(f"Frame(records={per_block}, ")
+            and f"  f0 [int32]: 0, 1, 2" in lines
+            and f"  f1 [int32]: {f1[0]}, {f1[1]}, {f1[2]}" in lines
+            and any(ln.endswith(f": {f2[0]}, {f2[1]}, {f2[2]}")
+                    for ln in lines[1:])):
+        raise AssertionError(f"CLI join: {lines}")
+    low = f1 < SQL_HALF
+    got, _ = cli_on_card(["sql", "SELECT COUNT(*) AS n, SUM(f1) AS s, "
+                          f"MIN(f2) AS m FROM t WHERE f1 < {SQL_HALF}",
+                          block_path], ("stage1_fold",))
+    lines = got.splitlines()
+    if lines[1:] != [f"  n [int64]: {int(low.sum())}",
+                     f"  s [int64]: {int(f1[low].sum())}",
+                     f"  m [int64]: {int(f2[low].min())}"]:
+        raise AssertionError(f"CLI sql: {lines}")
+    os.remove(block_path)
+    out["cli_s"] = time.perf_counter() - t_cli
+
+    # python -m csv_simd_tpu_torch info in a process of its own, which
+    # must not import jax or csv_simd_tpu
+    wrapper = (
+        "import runpy, sys\n"
+        f"sys.argv = ['csv_simd_tpu_torch', 'info', {path!r}]\n"
+        "try:\n"
+        "    runpy.run_module('csv_simd_tpu_torch', run_name='__main__',\n"
+        "                     alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    if e.code:\n"
+        "        raise\n"
+        "bad = [m for m in ('jax', 'csv_simd_tpu')\n"
+        "       if sys.modules.get(m) is not None]\n"
+        "if bad:\n"
+        "    sys.exit(f'imported {bad}')\n")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", wrapper], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    out["subprocess_s"] = time.perf_counter() - t0
+    if r.returncode != 0 or r.stdout != info_out:
+        raise AssertionError(f"python -m csv_simd_tpu_torch info: exit "
+                             f"{r.returncode}, {r.stdout[:300]!r}, "
+                             f"{r.stderr[-2000:]}")
+    os.remove(jpath)
+    out["n_struct"] = n_struct
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def driven(fn, *args, **kw) -> tuple:
     """fn's result and the launch counts of its run alone."""
     from csv_simd_tpu_torch import _kernels
@@ -3142,6 +3491,22 @@ def main() -> int:
           f"equal to the truth and run on the card; phase "
           f"{sh['phase_s']:.1f} s")
 
+    # phase 12: the JSON stage-1 (J1) gated and timed at 1 GiB, then the
+    # CLI on the card, every subcommand, and `python -m
+    # csv_simd_tpu_torch info` in a process of its own; last, after 11
+    js = run_json_cli_path(gate, device, block, index, per_block, path)
+    print(f"JSON stage-1 (J1) against its plain version "
+          f"({gate.checks['json_stage1']} comparisons, the 256 MiB random "
+          f"alphabet among them), and on {js['json_bytes']} bytes of JSON "
+          f"(the 64 MiB block of records tiled {REPEATS} times) equal to the "
+          f"plain version's on the block, tiled; the CLI on the card: "
+          + "; ".join(f"{k} {nonzero(v)}" for k, v in js["launches"].items())
+          + f", and frame, values, stats, describe, groupby, join, sql and "
+          f"serve, every output equal to the truth ({js['cli_s']:.1f} s); "
+          f"`python -m csv_simd_tpu_torch info` of the 1 GiB table in "
+          f"{js['subprocess_s']:.1f} s without jax or csv_simd_tpu; phase "
+          f"{js['phase_s']:.1f} s")
+
     gb = padded_rows(size) * ROW_BYTES / 1e9
     print(f"times on {card}:")
     for name in ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
@@ -3241,6 +3606,17 @@ def main() -> int:
           "host-to-device copies traced; top device ops: "
           + "; ".join(f"{name[:80]} {t:.3f} ms x{k}"
                       for name, (t, k) in sh["trace_top"]))
+
+    jb, jb1 = j1_bound(js["timed_bytes"]), j1_bound(js["json_bytes"])
+    print(f"J1 (json_stage1) on {card}: 64 MiB {js['ms']:.4f} ms (events; "
+          f"plain {js['plain_ms']:.3f}; bound {jb[0]:.4f} {jb[1]}: 9 bytes "
+          f"a byte, {10 * js['timed_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} "
+          f"with its second read), 1 GiB {js['ms_1GiB']:.4f} ms (events; "
+          f"{js['json_bytes'] / js['ms_1GiB'] / 1e6:.1f} GB/s of input; "
+          f"plain {js['plain_ms_1GiB']:.3f}, peak "
+          f"{js['plain_peak_gb_1GiB']:.1f} GB; bound {jb1[0]:.4f} {jb1[1]}, "
+          f"{10 * js['json_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} with its "
+          f"second read)")
 
     # phase 6 and 7 results, one line each, with the card
     for at in ("64 MiB", "1 GiB"):
@@ -3392,6 +3768,9 @@ def main() -> int:
         ("_local_parity", "cuda", "shard_parity.cu",
          "csv_simd_tpu/parallel/sharded.py:51", "quote_parity",
          sh["launches"], "quote_parity"),
+        ("json_depths_device", "cuda", "json_stage1.cu",
+         "csv_simd_tpu/experiments/json_device.py:93", "json_stage1",
+         js["launches"]["json-index"], "json_stage1"),
     )
     # the input bytes each kernel's `ms` was timed on
     gib, blk_words = padded_rows(size) * ROW_BYTES, BLOCK_BYTES
@@ -3415,6 +3794,10 @@ def main() -> int:
     bound["quote_parity"] = s1_bound(sh["timed_bytes"])
     ms["quote_parity"], ms["quote_parity_plain"] = sh["ms"], sh["plain_ms"]
     library_ms["quote_parity"] = sh["library_ms"]
+    # J1's: 9 bytes a byte, timed on the 64 MiB JSON block; no library
+    # call computes it
+    bound["json_stage1"] = jb
+    ms["json_stage1"], ms["json_stage1_plain"] = js["ms"], js["plain_ms"]
     kernels = [
         {"name": name, "route": route_, "source": src + source,
          "replaces": replaces, "launches": launches[counter],

@@ -48,7 +48,7 @@ LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
             "probe_mosaic_gather": 0, "probe_mosaic_cmp8": 0,
             "probe_mosaic_select8": 0, "probe_mosaic_shift_add": 0,
             "probe_mosaic_usum": 0, "probe_concat_mm": 0, "utf8_errs": 0,
-            "quote_parity": 0}
+            "quote_parity": 0, "json_stage1": 0}
 _lib = None
 _alu_op_counts = None
 _alu_const_arrays = {}
@@ -199,6 +199,10 @@ def _library():
         lib.csv_utf8_errs.restype = i
         lib.csv_quote_parity.argtypes = [vp, ll, i, vp, vp]
         lib.csv_quote_parity.restype = i
+        lib.csv_json_stage1_segments.argtypes = [ll]
+        lib.csv_json_stage1_segments.restype = ll
+        lib.csv_json_stage1.argtypes = [vp, ll, vp, vp, vp, vp, vp]
+        lib.csv_json_stage1.restype = i
         lib.csv_cuda_error_string.argtypes = [i]
         lib.csv_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -528,6 +532,42 @@ def quote_parity(words: torch.Tensor, quote: int) -> torch.Tensor:
     _raise_on(err, "quote_parity")
     LAUNCHES["quote_parity"] += 1
     return out
+
+
+def json_stage1(data: torch.Tensor) -> tuple:
+    """Kernel J1 (csrc/json_stage1.cu) on CUDA uint8 bytes (any shape,
+    fewer than 2**31) -> (mask, depth), each (n,) int32 on the bytes'
+    device: the structural mask outside strings and the nesting depth of
+    `experiments.json_device._depths_plain`. Bytes that are not
+    contiguous or not 16-byte aligned are copied first; no bytes launch
+    nothing."""
+    if data.device.type != "cuda":
+        raise ValueError(f"json_stage1: expected a CUDA tensor, got "
+                         f"{data.device}")
+    if data.dtype != torch.uint8:
+        raise ValueError(f"json_stage1: expected uint8, got {data.dtype}")
+    flat = data.reshape(-1)
+    n = flat.numel()
+    if n >= 2**31:
+        raise ValueError(f"json_stage1: {n} bytes; fewer than 2**31 only")
+    dev = data.device
+    with torch.cuda.device(dev):
+        mask = torch.empty(n, dtype=torch.int32, device=dev)
+        depth = torch.empty(n, dtype=torch.int32, device=dev)
+        if n == 0:
+            return mask, depth
+        if not flat.is_contiguous() or flat.data_ptr() % 16:
+            flat = flat.clone(memory_format=torch.contiguous_format)
+        lib = _library()
+        nseg = lib.csv_json_stage1_segments(n)
+        tables = torch.empty(3 * nseg, dtype=torch.int32, device=dev)
+        carries = torch.empty(2 * nseg, dtype=torch.int32, device=dev)
+        err = lib.csv_json_stage1(flat.data_ptr(), n, tables.data_ptr(),
+                                  carries.data_ptr(), mask.data_ptr(),
+                                  depth.data_ptr(), _stream(dev))
+    _raise_on(err, "json_stage1")
+    LAUNCHES["json_stage1"] += 1
+    return mask, depth
 
 
 # modes of csrc/probe_stream.cu's write kernel and csrc/probe_ablate.cu

@@ -7,6 +7,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -24,6 +25,20 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def best_s(fn, device: torch.device, trials: int = 5) -> float:
+    """The least seconds a call of fn over `trials` calls, after a warm-up
+    call: by CUDA events on a card, by the host clock on the CPU."""
+    if device.type == "cuda":
+        return min(cuda_ms(fn, 1) for _ in range(trials)) / 1e3
+    fn()
+    best = float("inf")
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 def graph_ms(fn, reps: int) -> float:

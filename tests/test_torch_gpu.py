@@ -1836,3 +1836,115 @@ def test_sharded_column_leaves_no_large_tensor_on_the_cpu(cuda_device):
         assert bool(ok.all()) and stats.count == n
         assert np.array_equal(vals.cpu().numpy(),
                               np.array(host.column(0)).astype(np.int32))
+
+
+# -- kernel J1, the JSON stage-1 (csrc/json_stage1.cu) --
+
+def _json_on_card(data, device) -> tuple:
+    from csv_simd_tpu_torch.experiments.json_device import _depths_plain
+
+    arr = np.frombuffer(bytes(data), np.uint8) if not isinstance(
+        data, np.ndarray) else data
+    t = torch.from_numpy(arr.copy()).to(device)
+    got = _kernels.json_stage1(t)
+    want = _depths_plain(t)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.gpu
+def test_json_kernel_matches_plain_on_edge_cases(cuda_device):
+    from json_cases import CASES, escape_runs, random_alphabet, straddling
+
+    cases = [c for c in CASES if c] + escape_runs(70)
+    cases += [c for _, c in straddling()]
+    cases += [random_alphabet(n, n) for n in
+              (1, 2, 3, 4, 5, 15, 16, 17, 127, 128, 129, 511, 512, 513,
+               16_383, 16_384, 16_385, 100_003, 1 << 20)]
+    for data in cases:
+        (m, d), (wm, wd) = _json_on_card(data, cuda_device)
+        assert torch.equal(m, wm) and torch.equal(d, wd), bytes(data[:60])
+
+
+@pytest.mark.gpu
+def test_json_kernel_unaligned_and_empty(cuda_device):
+    from json_cases import random_alphabet
+    from csv_simd_tpu_torch.experiments.json_device import _depths_plain
+
+    t = torch.from_numpy(random_alphabet(40_001, 3)).to(cuda_device)
+    for off in (1, 2, 3, 5):
+        got = _kernels.json_stage1(t[off:])
+        want = _depths_plain(t[off:])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    before = _kernels.launch_counts()["json_stage1"]
+    m, d = _kernels.json_stage1(t[:0])
+    assert m.numel() == 0 and d.numel() == 0
+    assert _kernels.launch_counts()["json_stage1"] == before
+    with pytest.raises(ValueError):
+        _kernels.json_stage1(t.cpu())
+    with pytest.raises(ValueError):
+        _kernels.json_stage1(t.to(torch.int32))
+
+
+@pytest.mark.gpu
+def test_json_depths_device_launches_j1_once(cuda_device):
+    from json_cases import json_lines
+    from csv_simd_tpu_torch.experiments import json_device
+
+    block = json_lines(1 << 20, 11)
+    before = _kernels.launch_counts()["json_stage1"]
+    mask, depth = json_device.json_depths_device(block, device="cuda")
+    assert _kernels.launch_counts()["json_stage1"] == before + 1
+    cm, cd = json_device.json_depths_device(block, device="cpu")
+    assert torch.equal(mask.cpu(), cm) and torch.equal(depth.cpu(), cd)
+    assert int(depth[-1]) == 0
+    got = json_device.json_structural_index_device(block, device="cuda")
+    assert np.array_equal(got, np.flatnonzero(cm.numpy()))
+    assert torch.equal(
+        json_device.json_structural_mask_device(block, device="cuda").cpu(),
+        cm)
+
+
+def _cli_on(device, argv) -> tuple:
+    """(exit code, stdout, launch counts) of the port's CLI in process."""
+    import contextlib
+    import io
+
+    from csv_simd_tpu_torch.__main__ import main
+
+    out = io.StringIO()
+    _kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = main(["--device", device, *argv])
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), _kernels.launch_counts()
+
+
+@pytest.mark.gpu
+def test_cli_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """info, column --type int32, --validate-utf8 info, index --format
+    packed_seq and json-index on the card print what they print on the
+    CPU, each launching the kernels its path reaches."""
+    from json_cases import json_lines
+
+    csv = tmp_path / "t.csv"
+    csv.write_bytes(relational_csv(3, n=2000))
+    doc = tmp_path / "t.json"
+    doc.write_bytes(json_lines(200_000, 5, distinct=128))
+    art = str(tmp_path / "seq.npz")
+    for argv, kernels in (
+            (["info", str(csv)], ("stage1_fold",)),
+            (["column", str(csv), "2", "--type", "int32", "--limit", "50"],
+             ("stage1_fold",)),
+            (["--validate-utf8", "info", str(csv)],
+             ("stage1_fold", "utf8_errs")),
+            (["index", str(csv), "-o", art, "--format", "packed_seq"],
+             ("stage1_v4", "row_prefix")),
+            (["json-index", str(doc), "--limit", "200"], ("json_stage1",))):
+        rc, out, launched = _cli_on("cuda", argv)
+        want = _cli_on("cpu", argv)
+        assert (rc, out) == want[:2], argv
+        assert rc == 0
+        for k in kernels:
+            assert launched[k] >= 1, (argv, k, launched)
+        assert not any(want[2].values()), argv
