@@ -143,7 +143,8 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--metrics", action="store_true",
-        help="print per-stage timing/throughput spans to stderr on exit",
+        help="print the program's spans (calls, ms, GB/s) and counters to "
+             "stderr on exit",
     )
     p.add_argument(
         "--device", default="cuda", choices=["cuda", "cpu"],

@@ -39,6 +39,7 @@ import torch
 
 from .device import resolve_device
 from .utils import as_u8
+from .utils.metrics import GLOBAL
 
 _INT32_MIN = -(2**31)
 _FLT_MIN = 2.0**-126  # the least normal float32
@@ -318,8 +319,9 @@ class DeviceTape(TypedColumnsMixin):
 
             host = as_u8(data)
             self.data = _to_device(host, host.size, self.device)
-        self.index = torch.from_numpy(
-            np.ascontiguousarray(idx_host, dtype=np.int32)).to(self.device)
+        with GLOBAL.span("device_tape.index_upload"):
+            self.index = torch.from_numpy(np.ascontiguousarray(
+                idx_host, dtype=np.int32)).to(self.device)
         self.jump = int(jump)
         self.field_cnt = int(field_cnt)
         self.record_cnt = int(record_cnt)

@@ -26,6 +26,7 @@ from .ops.compact import extract_offsets_device
 from .ops.scan import in_quote_parity, parity_out
 from .ops.stage1_v2 import ROW_BYTES, padded_rows
 from .utils import as_u8
+from .utils.metrics import GLOBAL
 
 LANES = 128
 ROW_ALIGN = 32  # int8 sublane tile of the JAX layout
@@ -151,16 +152,17 @@ def extract_offsets_from_packed(packed_np: np.ndarray, tile: int,
     builds (g++ at first use), NumPy unpack + flatnonzero otherwise."""
     from .ops.stage1_v3 import unpack_packed_host
 
-    try:
-        from . import native
+    with GLOBAL.span("index.extract", n_bytes):
+        try:
+            from . import native
 
-        if native.available():
-            return native.extract_offsets_v3(packed_np, tile, n_bytes,
-                                             base=base)
-    except (OSError, RuntimeError):
-        pass  # no native build: fall through to the NumPy unpack
-    mask = unpack_packed_host(packed_np, n_bytes, tile=tile)
-    return np.flatnonzero(mask).astype(np.int64) + base
+            if native.available():
+                return native.extract_offsets_v3(packed_np, tile, n_bytes,
+                                                 base=base)
+        except (OSError, RuntimeError):
+            pass  # no native build: fall through to the NumPy unpack
+        mask = unpack_packed_host(packed_np, n_bytes, tile=tile)
+        return np.flatnonzero(mask).astype(np.int64) + base
 
 
 def build_index(data: bytes | np.ndarray, dialect: Dialect = DEFAULT_DIALECT,
@@ -201,7 +203,9 @@ def build_index(data: bytes | np.ndarray, dialect: Dialect = DEFAULT_DIALECT,
     else:
         packed, _par = stage1_swar_xla(w2d, 0, dialect, row_tile=FOLD_TILE)
     tile = min(FOLD_TILE, w2d.shape[0])
-    offsets = extract_offsets_from_packed(_to_host(packed), tile, arr.size)
+    with GLOBAL.span("index.words_to_host"):
+        words = _to_host(packed)
+    offsets = extract_offsets_from_packed(words, tile, arr.size)
     return np.concatenate([np.zeros(1, dtype=np.int64), offsets])
 
 

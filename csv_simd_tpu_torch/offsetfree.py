@@ -28,6 +28,7 @@ from .ops.stage1_v4 import stage1_fused_v4
 from .ops.swar import popcount32, shift_right_logical
 from .tape import Header, NewLine
 from .utils import as_u8
+from .utils.metrics import GLOBAL
 
 _TWO_GIB_MSG = (
     "PackedDeviceTape uses int32 flat byte positions: inputs of 2 GiB or "
@@ -114,23 +115,26 @@ def _bit_in_row(wrow: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
 
 def _serve(data, words2d, cum_incl, records, fields, jump: int,
            field_cnt: int, record_cnt: int, max_len: int):
-    valid = ((records >= 0) & (records + 1 < record_cnt)
-             & (fields >= 0) & (fields < field_cnt))
-    r = torch.where(valid, records, 0)
-    f = torch.where(valid, fields, 0)
-    slots = (r + 1) * jump + f  # >= 1 for all valid queries
-    ks = torch.cat([slots - 1, slots])  # start bit, end bit
-    pos = _kth_positions(words2d, cum_incl, ks)
-    n = slots.shape[0]
-    starts = pos[:n] + 1
-    ends = pos[n:]
-    lengths = torch.where(valid, ends - starts, 0)
-    grid = starts[:, None] + torch.arange(max_len, dtype=torch.int32,
-                                          device=data.device)[None, :]
-    in_range = grid < ends[:, None]
-    grid = grid.clamp(0, data.shape[0] - 1)
-    out = torch.where(in_range & valid[:, None], data[grid], 0)
-    return out, lengths, valid
+    GLOBAL.count("offsetfree.lookups", records.shape[0])
+    with GLOBAL.span("offsetfree.serve"):
+        valid = ((records >= 0) & (records + 1 < record_cnt)
+                 & (fields >= 0) & (fields < field_cnt))
+        r = torch.where(valid, records, 0)
+        f = torch.where(valid, fields, 0)
+        slots = (r + 1) * jump + f  # >= 1 for all valid queries
+        ks = torch.cat([slots - 1, slots])  # start bit, end bit
+        with GLOBAL.span("offsetfree.rank_select"):
+            pos = _kth_positions(words2d, cum_incl, ks)
+        n = slots.shape[0]
+        starts = pos[:n] + 1
+        ends = pos[n:]
+        lengths = torch.where(valid, ends - starts, 0)
+        grid = starts[:, None] + torch.arange(max_len, dtype=torch.int32,
+                                              device=data.device)[None, :]
+        in_range = grid < ends[:, None]
+        grid = grid.clamp(0, data.shape[0] - 1)
+        out = torch.where(in_range & valid[:, None], data[grid], 0)
+        return out, lengths, valid
 
 
 def packed_seq_meta(header, n_bytes: int, fingerprint: str) -> dict:
@@ -161,12 +165,14 @@ def _to_device(arr: np.ndarray, n_bytes: int,
     The host buffer is written once; for a card it is pinned and copied
     without blocking (the caching host allocator keeps it alive until
     the copy is done)."""
-    pin = device.type == "cuda"
-    host = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=pin)
-    h = host.numpy()
-    h[: arr.size] = arr
-    h[arr.size:] = 0
-    return host.to(device, non_blocking=True) if pin else host
+    with GLOBAL.span("offsetfree.pad", n_bytes):
+        pin = device.type == "cuda"
+        with GLOBAL.span("offsetfree.pin_alloc"):
+            host = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=pin)
+        h = host.numpy()
+        h[: arr.size] = arr
+        h[arr.size:] = 0
+        return host.to(device, non_blocking=True) if pin else host
 
 
 class PackedDeviceTape(TypedColumnsMixin):

@@ -58,6 +58,7 @@ import torch
 from .device import resolve_device
 from .device_tape import _ftz, _host
 from .frame import Col, parse_spec
+from .utils.metrics import GLOBAL
 
 _CHUNK = 8192  # 16-bit half sums: 8192 * 65535 < 2**31 — int32-exact
 _INT32_MAX = 2**31 - 1
@@ -219,6 +220,7 @@ def _stats_host_i64(vals: np.ndarray, ok: np.ndarray) -> Stats:
                  int(sel.min()), int(sel.max()), sum_sq)
 
 
+@GLOBAL.span("query.parse_column")
 def _parse_column(tape, field: int, col: Col, dialect, records=None):
     """-> (vals, ok, kind) with kind in {int, float, i64host}. Gather
     windows auto-size like frame._materialize."""
@@ -2135,6 +2137,7 @@ def _group_order(keys: torch.Tensor, ok: torch.Tensor):
     return order, seg, sok, gkeys, counts, n_groups
 
 
+@GLOBAL.span("query.group_reduce")
 def _group_reduce(vals, vok, order, seg, is_float: bool):
     """Per-segment reduce of one value column against a precomputed
     group order: exact digit-split int sums (see _GROUP_SPLIT) or f32
@@ -2228,6 +2231,7 @@ def group_aggregate(keys, vals, key_ok=None, val_ok=None):
     }
 
 
+@GLOBAL.span("query.group_keys")
 def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
                         sample: int):
     """Unified GROUP BY key preparation for every key shape.
@@ -2254,6 +2258,7 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
                 "columns"
             )
         uniqs, cols_meta = [], []
+        host_rows = 0  # rows of text keys sent to the host as bytes
         combo = None
         ok_all = None
         space = 1  # exact Python-int key-space size (no i64 wrap)
@@ -2264,7 +2269,12 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
             vals, ok, _ = _host_key_column(tape, names, f, col, dialect,
                                            records, sample)
             ok_all = ok if ok_all is None else (ok_all & ok)
-            uniq, inv = np.unique(vals, return_inverse=True)
+            if col.type in ("str", "bytes"):
+                host_rows += vals.shape[0]
+                with GLOBAL.span("query.key_to_host"):
+                    uniq, inv = np.unique(vals, return_inverse=True)
+            else:
+                uniq, inv = np.unique(vals, return_inverse=True)
             uniqs.append(uniq)
             cols_meta.append(col)
             inv = inv.astype(np.int64)
@@ -2274,6 +2284,7 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
                     "composite key space too large to radix-combine"
                 )
             combo = inv if combo is None else combo * len(uniq) + inv
+        GLOBAL.count("query.host_key_rows", host_rows)
         if combo is None:
             combo = np.zeros(0, np.int64)
             ok_all = np.zeros(0, bool)
@@ -2312,13 +2323,15 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
             recs, np.full(recs.shape, kf, np.int32), max_len=window,
             dialect=dialect, trim=kcol.trim,
         )
-        raw = tape.to_host_lists(out, ln, v)
-        kok_h = np.array([b is not None for b in raw], bool)
-        keys_b = np.array([b"" if b is None else b for b in raw],
-                          dtype=object)
-        # object-dtype unique: Python-bytes compare, so embedded NULs
-        # and length ties sort correctly (|S dtype would strip NULs)
-        uniq, inv = np.unique(keys_b[kok_h], return_inverse=True)
+        GLOBAL.count("query.host_key_rows", recs.shape[0])
+        with GLOBAL.span("query.key_to_host"):
+            raw = tape.to_host_lists(out, ln, v)
+            kok_h = np.array([b is not None for b in raw], bool)
+            keys_b = np.array([b"" if b is None else b for b in raw],
+                              dtype=object)
+            # object-dtype unique: Python-bytes compare, so embedded NULs
+            # and length ties sort correctly (|S dtype would strip NULs)
+            uniq, inv = np.unique(keys_b[kok_h], return_inverse=True)
         codes = np.zeros(recs.shape[0], np.int32)
         codes[kok_h] = inv.astype(np.int32)
 
@@ -2333,6 +2346,7 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
 
         return ("device", _to_dev(codes, tape.device, torch.int32),
                 _to_dev(kok_h, tape.device, torch.bool), decode)
+    GLOBAL.count("query.host_key_rows", 0)
     kv, kok, kkind = _parse_column(tape, kf, kcol, dialect,
                                    records=records)
     if kkind == "i64host":
@@ -2355,10 +2369,11 @@ def _host_key_column(tape, names, field: int, col: Col, dialect,
             ids, np.full(ids.shape, field, np.int32), max_len=window,
             dialect=dialect, trim=col.trim,
         )
-        raw = tape.to_host_lists(out, ln, v)
-        ok = np.array([b is not None for b in raw], bool)
-        vals = np.array([b"" if b is None else b for b in raw],
-                        dtype=object)
+        with GLOBAL.span("query.key_to_host"):
+            raw = tape.to_host_lists(out, ln, v)
+            ok = np.array([b is not None for b in raw], bool)
+            vals = np.array([b"" if b is None else b for b in raw],
+                            dtype=object)
         return vals, ok, True
     vals, ok, _ = _parse_column(tape, field, col, dialect,
                                 records=records)

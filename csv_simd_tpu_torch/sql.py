@@ -195,30 +195,13 @@ frame (the join itself still runs on device).
 
 from __future__ import annotations
 
-import functools
 import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .device import resolve_device
-
-
-def _spanned(name: str):
-    """Record the wrapped executor into utils.metrics.GLOBAL (the
-    tracing registry EXPLAIN ANALYZE reports from)."""
-
-    def deco(f):
-        @functools.wraps(f)
-        def wrapper(*a, **k):
-            from .utils.metrics import GLOBAL
-
-            with GLOBAL.span(name):
-                return f(*a, **k)
-
-        return wrapper
-
-    return deco
+from .utils.metrics import GLOBAL
 
 __all__ = ["sql", "explain", "SqlResult", "SqlError"]
 
@@ -1562,12 +1545,11 @@ def explain(query: str) -> str:
 
 def _explain_analyze(query: str, source, **kw) -> str:
     """EXPLAIN ANALYZE: the plan text PLUS an execution record —
-    total wall time, result shape, and the per-stage span deltas the
-    executors record into utils.metrics.GLOBAL (window/setop/join and
-    any instrumented pipeline stages the statement touched)."""
+    total wall time, result shape, and the deltas of the spans and
+    counters the statement recorded into utils.metrics.GLOBAL (parse,
+    group keys, typed parses, the window/setop/join executors and any
+    instrumented pipeline stages the statement touched)."""
     import time as _time
-
-    from .utils.metrics import GLOBAL
 
     plan = explain(query)
     before = {k: (s.calls, s.seconds, s.bytes)
@@ -1584,7 +1566,9 @@ def _explain_analyze(query: str, source, **kw) -> str:
     for k, s in GLOBAL.stages.items():
         c0, t0_, b0 = before.get(k, (0, 0.0, 0))
         dc, dtm = s.calls - c0, s.seconds - t0_
-        if dc > 0:
+        if dc > 0 and s.counter:
+            lines.append(f"  {k:24s} {dc:4d} counted")
+        elif dc > 0:
             db = s.bytes - b0
             rate = f"  {db / dtm / 1e9:.2f} GB/s" if db and dtm else ""
             lines.append(f"  {k:24s} {dc:4d} calls "
@@ -1802,7 +1786,8 @@ def sql(query: str, source=None, *, tables: Optional[Dict] = None,
                                 device=device)
     if stripped[:8].lower() == "explain ":
         return explain(_strip_explain(query))
-    ast = _Parser(query).parse()
+    with GLOBAL.span("sql.parse"):
+        ast = _Parser(query).parse()
 
     def _resolve(table, fallback_ok: bool):
         kind, val = table
@@ -2000,7 +1985,7 @@ def _referenced_cols(ast):
     return out
 
 
-@_spanned("sql.subquery")
+@GLOBAL.span("sql.subquery")
 def _in_subquery_values(sub: _InSubquery, resolve_table, kw):
     """Run the inner select of `col IN (SELECT ...)` and return its
     distinct non-NULL values as Python scalars (the literal list the
@@ -2038,7 +2023,7 @@ def _in_subquery_values(sub: _InSubquery, resolve_table, kw):
     return out
 
 
-@_spanned("sql.subquery")
+@GLOBAL.span("sql.subquery")
 def _in_subquery_rows(sub: _InSubquery, resolve_table, kw) -> list:
     """Materialize a MULTI-column subquery to a deduped list of row
     tuples for the composite in_rows leaf. Rows with any NULL key are
@@ -2752,7 +2737,7 @@ def _slice_frame(fr, keep: np.ndarray):
     return Frame(list(fr.names), cols, oks, dict(fr.schema), len(keep))
 
 
-@_spanned("sql.union_dedupe")
+@GLOBAL.span("sql.union_dedupe")
 def _dedupe_frame(fr, device):
     """Row-level dedupe of a frame (plain UNION): first occurrence of
     each distinct row survives, in order; NULLs compare equal. Fully
@@ -2771,7 +2756,7 @@ def _dedupe_frame(fr, device):
     return _slice_frame(fr, np.sort(first))
 
 
-@_spanned("sql.setop")
+@GLOBAL.span("sql.setop")
 def _setop_frames(acc, other, op: str, device):
     """EXCEPT / INTERSECT: distinct rows of `acc` that are absent from
     / present in `other` (first occurrence kept, in order; NULLs equal
@@ -3714,7 +3699,7 @@ def _device_window_column(fr, it, fn, n, part_cols, order_refs, vals,
     return out, (None if okb.all() else okb), vspec
 
 
-@_spanned("sql.window")
+@GLOBAL.span("sql.window")
 def _window_column(fr, it: _Item, resolve, device):
     """Evaluate a window item over a materialized frame (the values
     are on host — plain selections materialize — so windows are host
@@ -5362,7 +5347,7 @@ def _frame_join_source(sub, resolve_table, kw):
     return fr.to_csv(), {nm: fr.schema[nm] for nm in fr.names}
 
 
-@_spanned("sql.join")
+@GLOBAL.span("sql.join")
 def _run_join(ast: _Ast, left_src, right_src, kw):
     from .join import join_typed
 

@@ -96,14 +96,22 @@ def _ok_mask(m):
     return None if m is None else np.asarray(m, bool)
 
 
+# spans and counters that only the port records (its per-layer tracing
+# inside parse, group keys, typed parses, the pad and the index build)
+_PORT_ONLY = ("sql.parse", "query.", "offsetfree.", "index.",
+              "device_tape.")
+
+
 def _analyze_parts(text: str):
-    """EXPLAIN ANALYZE text -> (plan, result shape, [(span, calls)])."""
+    """EXPLAIN ANALYZE text -> (plan, result shape, [(span, calls)]), the
+    port's own spans and counters left out."""
     plan, _sep, rest = text.partition("\n\n-- ANALYZE --\n")
     lines = rest.splitlines()
     shape = lines[0].split("->", 1)[1].strip() if lines else ""
-    spans = [tuple(re.match(r"\s*(\S+)\s+(\d+) calls", ln).groups())
-             for ln in lines[1:]]
-    return plan, shape, sorted(spans)
+    spans = [re.match(r"\s*(\S+)\s+(\d+) (?:calls|counted)", ln)
+             .groups() for ln in lines[1:]]
+    return plan, shape, sorted(s for s in spans
+                               if not s[0].startswith(_PORT_ONLY))
 
 
 def same_result(got, want, path: str = "result"):
