@@ -26,7 +26,9 @@ device and dtype (`_to_dev`), writing int32 where the JAX package's
   sort), derives segment ids from key-change flags, and reduces values
   with segment ops (`index_add_`, `scatter_reduce`); only the per-group
   results leave the device. Integer group sums use a 3-component digit
-  split (exact for groups up to ~1M rows, checked).
+  split (exact for groups up to ~1M rows, checked). Text GROUP BY keys
+  factorize on the device as well (`_factorize_text_device`; host
+  NumPy in the JAX package): only their distinct values leave it.
 
 Predicate grammar (the `where` argument): a single predicate or a list
 (AND semantics). Each predicate is `(column, op, value)` with op one of
@@ -2245,11 +2247,15 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
       user-facing representation (categorical text via the
       factorization table, composite radix codes back to per-column
       arrays, identity otherwise).
+
+    Text keys factorize on the device (_factorize_text_device): only
+    their distinct values reach the host.
     """
+    GLOBAL.count("query.host_key_rows", 0)
     if isinstance(key, (list, tuple)):
         # composite: factorize each column to dense codes, combine into
-        # one mixed-radix code; np.unique sorts each factorization so
-        # the combined order is lexicographic (col0, col1, ...)
+        # one mixed-radix code on the device; each factorization is
+        # sorted, so the combined order is lexicographic (col0, col1, ...)
         specs = (list(key_spec) if key_spec is not None
                  else [None] * len(key))
         if len(specs) != len(key):
@@ -2258,7 +2264,6 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
                 "columns"
             )
         uniqs, cols_meta = [], []
-        host_rows = 0  # rows of text keys sent to the host as bytes
         combo = None
         ok_all = None
         space = 1  # exact Python-int key-space size (no i64 wrap)
@@ -2266,28 +2271,24 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
             f = _field_index(names, k)
             col = (parse_spec(spec) if spec is not None
                    else infer_col(tape, names, f, sample))
-            vals, ok, _ = _host_key_column(tape, names, f, col, dialect,
-                                           records, sample)
-            ok_all = ok if ok_all is None else (ok_all & ok)
             if col.type in ("str", "bytes"):
-                host_rows += vals.shape[0]
-                with GLOBAL.span("query.key_to_host"):
-                    uniq, inv = np.unique(vals, return_inverse=True)
+                inv, ok, uniq = _factorize_text_device(
+                    *_gather_text_key(tape, f, col, dialect, records))
             else:
+                vals, ok, _ = _host_key_column(tape, names, f, col,
+                                               dialect, records, sample)
                 uniq, inv = np.unique(vals, return_inverse=True)
+                ok = _to_dev(ok, tape.device, torch.bool)
+            inv = _to_dev(inv, tape.device, torch.int64)
+            ok_all = ok if ok_all is None else (ok_all & ok)
             uniqs.append(uniq)
             cols_meta.append(col)
-            inv = inv.astype(np.int64)
             space *= max(len(uniq), 1)
             if space >= 2**62:
                 raise ValueError(
                     "composite key space too large to radix-combine"
                 )
             combo = inv if combo is None else combo * len(uniq) + inv
-        GLOBAL.count("query.host_key_rows", host_rows)
-        if combo is None:
-            combo = np.zeros(0, np.int64)
-            ok_all = np.zeros(0, bool)
 
         def decode(codes):
             out_keys = []
@@ -2301,39 +2302,21 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
                 for arr, col in zip(out_keys, cols_meta)
             ]
 
-        if combo.shape[0] and combo.max(initial=0) < 2**31 - 1:
-            return ("device",
-                    _to_dev(combo.astype(np.int32), tape.device,
-                            torch.int32),
-                    _to_dev(ok_all, tape.device, torch.bool), decode)
-        return ("host", combo, np.asarray(ok_all, bool), decode)
+        if combo is None or not combo.shape[0]:
+            return ("host", np.zeros(0, np.int64), np.zeros(0, bool),
+                    decode)
+        if int(combo.max()) < 2**31 - 1:
+            return ("device", combo.to(torch.int32), ok_all, decode)
+        return ("host", _host(combo), _host(ok_all).astype(bool), decode)
 
     kf = _field_index(names, key)
     kcol = (parse_spec(key_spec) if key_spec is not None
             else infer_col(tape, names, kf, sample))
     if kcol.type in ("str", "bytes"):
-        # categorical key: factorize the DECODED column on host into
-        # dense int32 codes (np.unique sorts, so code order == key
-        # order), then the device segment grouping runs on the codes
-        from .frame import _true_window
-
-        window = kcol.max_len or _true_window(tape, kf, 16)
-        recs = _record_ids(tape, records)
-        out, ln, v = tape.gather_decoded(
-            recs, np.full(recs.shape, kf, np.int32), max_len=window,
-            dialect=dialect, trim=kcol.trim,
-        )
-        GLOBAL.count("query.host_key_rows", recs.shape[0])
-        with GLOBAL.span("query.key_to_host"):
-            raw = tape.to_host_lists(out, ln, v)
-            kok_h = np.array([b is not None for b in raw], bool)
-            keys_b = np.array([b"" if b is None else b for b in raw],
-                              dtype=object)
-            # object-dtype unique: Python-bytes compare, so embedded NULs
-            # and length ties sort correctly (|S dtype would strip NULs)
-            uniq, inv = np.unique(keys_b[kok_h], return_inverse=True)
-        codes = np.zeros(recs.shape[0], np.int32)
-        codes[kok_h] = inv.astype(np.int32)
+        # categorical key: dense int32 codes in key order, then the
+        # device segment grouping runs on the codes
+        codes, kok, uniq = _factorize_text_device(
+            *_gather_text_key(tape, kf, kcol, dialect, records))
 
         def decode(code_vals):
             gk = uniq[np.asarray(code_vals, np.int64)]
@@ -2344,9 +2327,7 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
                 )
             return gk
 
-        return ("device", _to_dev(codes, tape.device, torch.int32),
-                _to_dev(kok_h, tape.device, torch.bool), decode)
-    GLOBAL.count("query.host_key_rows", 0)
+        return ("device", codes, kok, decode)
     kv, kok, kkind = _parse_column(tape, kf, kcol, dialect,
                                    records=records)
     if kkind == "i64host":
@@ -2355,20 +2336,80 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
     return ("device", kv, _to_dev(kok, kv.device, torch.bool), lambda c: c)
 
 
+def _gather_text_key(tape, field: int, col: Col, dialect, records):
+    """A str/bytes key column decoded on the tape's device: (out (N, W)
+    uint8, lengths, valid), W the column's longest field, bucketed."""
+    from .frame import _true_window
+
+    window = col.max_len or _true_window(tape, field, 16)
+    ids = _record_ids(tape, records)
+    return tape.gather_decoded(
+        ids, np.full(ids.shape, field, np.int32), max_len=window,
+        dialect=dialect, trim=col.trim,
+    )
+
+
+@GLOBAL.span("query.key_factorize")
+def _factorize_text_device(out, lengths, valid):
+    """Decoded text keys (out (N, W) uint8, lengths, valid) -> (codes
+    (N,) int32, 0 where invalid; valid (N,) bool; uniq (G,) object array
+    of the distinct valid keys, ascending), all but uniq on the keys'
+    device. Code order is Python `bytes` order, and uniq is np.unique of
+    the valid rows' `bytes`.
+
+    Bytes [0, L) (L the longest valid key, one scalar readback), masked
+    to each row's length, pack big-endian 7 to a non-negative int64
+    word, with the length as the last key: zero padding ties only a true
+    prefix with its extension by NULs, and the length breaks that tie.
+    At L <= 7 bytes and length share one word, and one sort groups the
+    rows; longer keys take a stable sort a word. Invalid rows key -1 in
+    every word. Only the G first rows of the sorted runs are read back."""
+    from . import device_tape
+    from .window import _changes, _lex_sort
+
+    n = out.shape[0]
+    dev = out.device
+    GLOBAL.count("query.device_key_rows", n)
+    valid = valid.to(torch.bool)
+    if n == 0:
+        return (torch.zeros(0, dtype=torch.int32, device=dev), valid,
+                np.zeros(0, object))
+    ln = torch.where(valid, lengths.to(torch.int64), 0)
+    longest = int(ln.max())  # <= W: gather_decoded refuses a cut field
+    b = torch.where(torch.arange(longest, device=dev) < ln[:, None],
+                    out[:, :longest], 0)
+
+    def be_word(cols):  # (N, k <= 7) bytes -> (N,) int64, big-endian
+        shifts = 8 * torch.arange(cols.shape[1] - 1, -1, -1, device=dev)
+        return (cols.to(torch.int64) << shifts).sum(1)
+
+    if longest <= 7:
+        words = [(be_word(b) << longest.bit_length()) | ln]
+    else:
+        words = [be_word(b[:, i:i + 7]) for i in range(0, longest, 7)]
+        words.append(ln)
+    keys = torch.stack([torch.where(valid, k, -1) for k in words])
+    perm = _lex_sort(keys)
+    vs = valid[perm]
+    first = _changes(keys[:, perm]) & vs
+    codes = torch.zeros(n, dtype=torch.int32, device=dev)
+    codes[perm] = torch.where(vs, torch.cumsum(first, 0) - 1,
+                              0).to(torch.int32)
+    reps = perm[first]
+    raw = device_tape._to_host_lists(out[reps, :longest], lengths[reps],
+                                     valid[reps])
+    uniq = np.empty(len(raw), object)
+    uniq[:] = raw
+    return codes, valid, uniq
+
+
 def _host_key_column(tape, names, field: int, col: Col, dialect,
                      records, sample: int):
-    """One group-key column as host-factorizable values + ok mask.
-    Typed columns parse on device and ship the (N,) values once;
-    str/bytes ship the decoded text."""
+    """One key column as host-factorizable values + ok mask: a typed
+    GROUP BY key, or a join key. Typed columns parse on device and ship
+    the (N,) values once; str/bytes (joins) ship the decoded text."""
     if col.type in ("str", "bytes"):
-        from .frame import _true_window
-
-        window = col.max_len or _true_window(tape, field, 16)
-        ids = _record_ids(tape, records)
-        out, ln, v = tape.gather_decoded(
-            ids, np.full(ids.shape, field, np.int32), max_len=window,
-            dialect=dialect, trim=col.trim,
-        )
+        out, ln, v = _gather_text_key(tape, field, col, dialect, records)
         with GLOBAL.span("query.key_to_host"):
             raw = tape.to_host_lists(out, ln, v)
             ok = np.array([b is not None for b in raw], bool)

@@ -67,6 +67,47 @@ def relational_csv(seed: int, n: int = 300) -> bytes:
     return ("\n".join(rows) + "\n").encode()
 
 
+# Text keys that Python `bytes` order and a packed-word order could tell
+# apart: embedded NULs, bytes >= 0x80, the empty key, true prefixes, and
+# keys on both sides of each 7- and 8-byte word boundary.
+KEY_CASES = tuple(dict.fromkeys(
+    (b"", b"a", b"a\x00", b"ab", b"\x00", b"\x00\x00", b"\x00a", b"\x7f",
+     b"\x80", b"\xff", b"a\xff", b"\xe9t\xe9", b"A", b"N")
+    + tuple(k for n in (1, 6, 7, 8, 9, 15, 16, 17)
+            for k in (b"k" * n, b"k" * (n - 1) + b"\x00",
+                      b"k" * (n - 1) + b"\xff", b"k" * (n - 1) + b"j"))))
+
+
+def key_batch(keys, valid, width: int, seed: int = 0):
+    """A decoded gather of `keys` as (out (N, width) uint8, lengths (N,)
+    int32, valid (N,) bool) CPU tensors, with random bytes past each
+    length and in invalid rows."""
+    rng = np.random.default_rng(seed)
+    out = rng.integers(0, 256, (len(keys), width), dtype=np.uint8)
+    lengths = np.zeros(len(keys), np.int32)
+    for i, k in enumerate(keys):
+        out[i, :len(k)] = np.frombuffer(k, np.uint8)
+        lengths[i] = len(k)
+    return (torch.from_numpy(out), torch.from_numpy(lengths),
+            torch.from_numpy(np.asarray(valid, bool)))
+
+
+def lineitem_flags(n: int, seed: int):
+    """TPC-H LINEITEM's two GROUP BY keys of Q1 as decoded gathers 16
+    bytes wide: l_returnflag (A, N, R) and l_linestatus (F, O), each
+    with about 1% invalid rows."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for letters in (b"ANR", b"FO"):
+        out = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+        out[:, 0] = np.frombuffer(letters, np.uint8)[
+            rng.integers(0, len(letters), n)]
+        cols.append((torch.from_numpy(out),
+                     torch.ones(n, dtype=torch.int32),
+                     torch.from_numpy(rng.random(n) > 0.01)))
+    return cols
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -1948,3 +1989,30 @@ def test_cli_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         for k in kernels:
             assert launched[k] >= 1, (argv, k, launched)
         assert not any(want[2].values()), argv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["lineitem", "adversarial"])
+def test_text_key_factorize_on_the_card_matches_the_cpu(cuda_device, case):
+    """query._factorize_text_device on the card: codes, validity and the
+    distinct keys equal the CPU run's, for Q1's flag columns at 2 M rows
+    and for KEY_CASES (widths 17 and 24)."""
+    from csv_simd_tpu_torch.query import _factorize_text_device
+
+    if case == "lineitem":
+        batches = lineitem_flags(2_000_000, 19)
+    else:
+        rng = np.random.default_rng(19)
+        batches = []
+        for width in (17, 24):
+            keys = [KEY_CASES[i]
+                    for i in rng.integers(0, len(KEY_CASES), 5000)]
+            batches.append(key_batch(keys, rng.random(5000) > 0.1, width))
+    for out, ln, v in batches:
+        want = _factorize_text_device(out, ln, v)
+        got = _factorize_text_device(out.to(cuda_device), ln.to(cuda_device),
+                                     v.to(cuda_device))
+        assert got[0].device.type == "cuda"
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        assert list(got[2]) == list(want[2])

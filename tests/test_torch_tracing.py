@@ -9,9 +9,9 @@ instrumented paths: the pad (`offsetfree.pad`, `offsetfree.pin_alloc`),
 the host index build (`index.words_to_host`, `index.extract`,
 `device_tape.index_upload`), the packed serve (`offsetfree.serve`,
 `offsetfree.rank_select`, the counter `offsetfree.lookups`) and SQL
-(`sql.parse`, `query.group_keys`, `query.key_to_host`,
-`query.parse_column`, `query.group_reduce`, the counter
-`query.host_key_rows`)."""
+(`sql.parse`, `query.group_keys`, `query.key_factorize`,
+`query.parse_column`, `query.group_reduce`, the counters
+`query.device_key_rows` and `query.host_key_rows`)."""
 
 import json
 
@@ -170,9 +170,9 @@ def test_program_spans_under_a_profiler_nest_in_the_callers(tmp_path,
     ev = _chrome(prof, tmp_path)
     (stmt,) = [e for e in ev if e["name"] == "sql.q1"]
     (keys,) = [e for e in ev if e["name"] == "query.group_keys"]
-    to_host = [e for e in ev if e["name"] == "query.key_to_host"]
+    factorize = [e for e in ev if e["name"] == "query.key_factorize"]
     assert _inside(keys, stmt)
-    assert to_host and all(_inside(e, keys) for e in to_host)
+    assert len(factorize) == 2 and all(_inside(e, keys) for e in factorize)
     assert any(e["name"] == "query.parse_column" and _inside(e, stmt)
                for e in ev)
 
@@ -267,16 +267,21 @@ def test_two_text_key_group_by_sends_both_keys_to_the_host(device_tape):
     assert int(np.asarray(r["n"]).sum()) == kept
     assert d.calls("sql.parse") == 1
     assert d.calls("query.group_keys") == 1
-    assert d.calls("query.key_to_host") >= 2
-    assert d.calls("query.host_key_rows") == 2 * kept
+    assert d.calls("query.key_factorize") == 2
+    assert d.calls("query.device_key_rows") == 2 * kept
+    assert d.got.get("query.host_key_rows", (0,))[0] == 0
+    assert GLOBAL.stages["query.host_key_rows"].counter
+    assert "query.key_to_host" not in d.got
 
 
 def test_one_text_key_group_by_counts_its_rows(device_tape):
     with _Delta() as d:
         ct.sql("SELECT flag, SUM(qty) AS s FROM t GROUP BY flag",
                device_tape, schema=SCHEMA, device="cpu")
-    assert d.calls("query.host_key_rows") == len(DATA.splitlines()) - 1
-    assert d.calls("query.key_to_host") == 1
+    assert d.calls("query.device_key_rows") == len(DATA.splitlines()) - 1
+    assert d.got.get("query.host_key_rows", (0,))[0] == 0
+    assert d.calls("query.key_factorize") == 1
+    assert "query.key_to_host" not in d.got
     assert d.calls("query.group_reduce") >= 1
 
 
@@ -306,11 +311,11 @@ def test_explain_analyze_lists_the_new_spans_and_counters(device_tape):
                  "FROM t GROUP BY flag, status", device_tape,
                  schema=SCHEMA, device="cpu")
     analyze = txt.split("-- ANALYZE --", 1)[1]
-    for name in ("sql.parse", "query.group_keys", "query.key_to_host",
+    for name in ("sql.parse", "query.group_keys", "query.key_factorize",
                  "query.parse_column", "query.group_reduce"):
         assert f"{name} " in analyze and "calls" in analyze, name
     rows = len(DATA.splitlines()) - 1
-    assert any(ln.split() == ["query.host_key_rows", str(2 * rows),
+    assert any(ln.split() == ["query.device_key_rows", str(2 * rows),
                               "counted"] for ln in analyze.splitlines())
 
 
