@@ -25,7 +25,7 @@ keeps them as subnormals on both devices (`_ftz`), and its power of ten
 is correctly rounded where torch's float32 `pow` is not (`_pow10`, a
 table).
 
-The typed columns: int32, float32 with and without an exponent, exact
+The typed columns: int32, int64, float32 with and without an exponent, exact
 decimals in three base-1e8 int32 limbs, ISO dates and datetimes, the
 decoded (trimmed, unquoted, unescaped) bytes, and an equality filter.
 """
@@ -197,6 +197,15 @@ class TypedColumnsMixin:
         sign-only fields, stray characters, values outside int32)."""
         out, lengths, valid = self._column_gather(field, max_len, records)
         return _parse_int32(out, lengths, valid)
+
+    def column_int64(self, field: int, max_len: int = 24, records=None):
+        """Parse a column as int64 on the device, exact over the whole
+        range (19 digits of either sign, -2**63 included). Grammar
+        `[spaces][+|-]digits` to the end of the field; returns (values (N,)
+        int64, ok (N,) bool) on the device, values 0 where not ok (empty
+        or sign-only fields, stray characters, values outside int64)."""
+        out, lengths, valid = self._column_gather(field, max_len, records)
+        return _parse_int64(out, lengths, valid)
 
     def column_float32(self, field: int, max_len: int = 24, records=None):
         """Parse a column as float32 on the device. Grammar
@@ -418,6 +427,36 @@ def _parse_int32(out, lengths, valid):
                & (digit_cnt == 10) & (first_digit == 0x32))
     ok = ok & (~overflow | int_min)
     val = torch.where(neg, -val, val)
+    return torch.where(ok, val, 0), ok
+
+
+_INT64_MIN = -(2**63)
+_INT64_LOW10 = _INT64_MIN // 10 + 1  # -922337203685477580
+
+
+def _parse_int64(out, lengths, valid):
+    """int64 parse with the int32 grammar. The magnitude accumulates
+    negated, v = v * 10 - d, which reaches -2**63 without wrapping; a step
+    wraps iff v < -922337203685477580, or v equals it and d > 8. A
+    positive value of 2**63 then fails on the final negation."""
+    n, max_len = out.shape
+    b, pos, in_field, neg, dstart = _field_preamble(out, lengths)
+    is_digit_pos = (pos >= dstart[:, None]) & in_field
+    digit = b - 0x30
+    good_digit = (digit >= 0) & (digit <= 9)
+    ok = (valid & (lengths > dstart) & (lengths <= max_len)
+          & torch.all(~is_digit_pos | good_digit, dim=1))
+    digit = digit.to(torch.int64)
+    val = torch.zeros(n, dtype=torch.int64, device=out.device)
+    overflow = torch.zeros(n, dtype=torch.bool, device=out.device)
+    for j in range(max_len):
+        d = digit[:, j]
+        use = is_digit_pos[:, j]
+        wraps = (val < _INT64_LOW10) | ((val == _INT64_LOW10) & (d > 8))
+        overflow = overflow | (use & wraps)
+        val = torch.where(use & ~wraps, val * 10 - d, val)
+    ok = ok & ~overflow & (neg | (val != _INT64_MIN))
+    val = torch.where(neg, val, -val)
     return torch.where(ok, val, 0), ok
 
 

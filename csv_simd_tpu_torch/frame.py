@@ -14,7 +14,8 @@ is that endpoint:
     frame["price"]   # (N,) int64, exact cents
     frame.ok("qty")  # (N,) bool parse-validity mask
 
-Column types: int32, float32 (no exponent), float (float32 + exponent
+Column types: int32, int64 (exact over its whole range, parsed on the
+device), float32 (no exponent), float (float32 + exponent
 notation), date (ISO -> numpy datetime64[D]), datetime[:unit] (ISO
 timestamp -> datetime64[s|ms|us], exact epoch integers), decimal[:scale]
 (EXACT scaled int64), str (stage-2 decoded text: trim/unquote/
@@ -43,6 +44,7 @@ from .errors import InvalidCsvFormat
 #: field exceeds the window, so the window must cover the longest field)
 _TYPE_MIN_LEN = {
     "int32": 16,
+    "int64": 24,
     "float32": 24,
     "float": 32,
     "date": 16,
@@ -425,6 +427,9 @@ def _materialize(tape, field: int, col: Col, dialect, strict: bool,
                                          _TYPE_MIN_LEN[col.type])
     if col.type == "int32":
         vals, okm = tape.column_int32(field, max_len=window,
+                                      records=records)
+    elif col.type == "int64":
+        vals, okm = tape.column_int64(field, max_len=window,
                                       records=records)
     elif col.type == "float32":
         vals, okm = tape.column_float32(field, max_len=window,

@@ -28,7 +28,12 @@ device and dtype (`_to_dev`), writing int32 where the JAX package's
   results leave the device. Integer group sums use a 3-component digit
   split (exact for groups up to ~1M rows, checked). Text GROUP BY keys
   factorize on the device as well (`_factorize_text_device`; host
-  NumPy in the JAX package): only their distinct values leave it.
+  NumPy in the JAX package), and so do the typed columns of a composite
+  key (`_factorize_values_device`; int64 codes where the key space
+  passes int32): only the distinct keys read back leave it.
+  `groupby_topk` also orders the groups on the device by their counts
+  and keys and reads back only the first k (SQL's ORDER BY COUNT(...)
+  LIMIT k), with COUNT(DISTINCT) counted there per group.
 
 Predicate grammar (the `where` argument): a single predicate or a list
 (AND semantics). Each predicate is `(column, op, value)` with op one of
@@ -223,9 +228,13 @@ def _stats_host_i64(vals: np.ndarray, ok: np.ndarray) -> Stats:
 
 
 @GLOBAL.span("query.parse_column")
-def _parse_column(tape, field: int, col: Col, dialect, records=None):
+def _parse_column(tape, field: int, col: Col, dialect, records=None,
+                  device_i64: bool = False):
     """-> (vals, ok, kind) with kind in {int, float, i64host}. Gather
-    windows auto-size like frame._materialize."""
+    windows auto-size like frame._materialize. An int64 column is parsed
+    on the device and, like decimals, handed over as host values
+    ("i64host", exact host arithmetic) unless `device_i64` asks for the
+    device tensors (kind "i64"), as a GROUP BY key takes them."""
     from .frame import _TYPE_MIN_LEN, _true_window
 
     window = col.max_len or _true_window(tape, field,
@@ -233,6 +242,11 @@ def _parse_column(tape, field: int, col: Col, dialect, records=None):
     if col.type == "int32":
         v, ok = tape.column_int32(field, max_len=window, records=records)
         return v, ok, "int"
+    if col.type == "int64":
+        v, ok = tape.column_int64(field, max_len=window, records=records)
+        if device_i64:
+            return v, ok, "i64"
+        return _host(v), _host(ok).astype(bool), "i64host"
     if col.type == "float32":
         v, ok = tape.column_float32(field, max_len=window, records=records)
         return v, ok, "float"
@@ -1441,6 +1455,13 @@ def _typed_literal(col: Col, value):
                 "the column as float to compare fractions)"
             )
         return int(value)
+    if col.type == "int64":
+        if isinstance(value, float) and not value.is_integer():
+            raise ValueError(
+                f"literal {value!r} is not an integer: comparisons "
+                "against an int64 column need integral literals"
+            )
+        return int(value)
     if col.type in ("float32", "float"):
         return np.float32(value)
     if col.type == "date":
@@ -2120,11 +2141,15 @@ def _group_order(keys: torch.Tensor, ok: torch.Tensor):
     change. Returns (order, seg, sorted-ok, group keys, per-group
     ok-row counts, valid-group count) — value columns then reduce
     against (order, seg) without re-sorting (multi-aggregate GROUP BY
-    pays for ONE sort). `seg` is int64, the index type of the segment
-    reduces."""
+    pays for ONE sort). Keys are int32, int64 or float32 (invalid rows
+    sort under the dtype's largest value; a valid row holding it shares
+    their segment, and the ok counts keep them apart). `seg` is int64,
+    the index type of the segment reduces."""
     n = keys.shape[0]
     is_float = keys.dtype == torch.float32
-    k = torch.where(ok, keys, torch.inf if is_float else _INT32_MAX)
+    hi, lo = ((torch.inf, -torch.inf) if is_float
+              else (torch.iinfo(keys.dtype).max, torch.iinfo(keys.dtype).min))
+    k = torch.where(ok, keys, hi)
     sk, order = torch.sort(k, stable=True)
     sok = ok[order]
     change = torch.cat([torch.zeros(1, dtype=torch.bool, device=k.device),
@@ -2134,8 +2159,7 @@ def _group_order(keys: torch.Tensor, ok: torch.Tensor):
     n_groups = torch.where(sok, seg, -1).amax() + 1
     # every row of a segment holds the same key, so any segment reduce
     # recovers it
-    gkeys = _segment_reduce(sk, seg, n, "amax",
-                            -torch.inf if is_float else _INT32_MIN)
+    gkeys = _segment_reduce(sk, seg, n, "amax", lo)
     return order, seg, sok, gkeys, counts, n_groups
 
 
@@ -2214,6 +2238,7 @@ def group_aggregate(keys, vals, key_ok=None, val_ok=None):
     order, seg, _sok, gk, counts, n_groups = _group_order(keys, ok)
     sums, mns, mxs, _cnt = _group_reduce(vals, ok, order, seg, is_float)
     g = int(n_groups)
+    GLOBAL.count("query.groups", g)
     counts = _host(counts[:g]).astype(np.int64)
     if not is_float and counts.max(initial=0) >= 2**20:
         # the ceiling protects integer digit-split exactness only;
@@ -2239,19 +2264,25 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
     """Unified GROUP BY key preparation for every key shape.
 
     Returns (kind, keys, kok, decode):
-    - kind "device": keys (N,) int32/float32 codes/values + bool
-      validity, tensors on the tape's device — segment-groupable there;
-    - kind "host": keys (N,) int64 np + np bool (decimal/datetime
-      values, or composite code spaces beyond int32);
+    - kind "device": keys (N,) int32/int64/float32 codes or values +
+      bool validity, tensors on the tape's device — segment-groupable
+      there;
+    - kind "host": keys (N,) int64 np + np bool (a single decimal or
+      datetime key, whose values the host put together);
     - decode maps the ascending per-group key values back to the
-      user-facing representation (categorical text via the
-      factorization table, composite radix codes back to per-column
-      arrays, identity otherwise).
+      user-facing representation (text through the factorization's key
+      table, composite radix codes back to per-column arrays, typed
+      values as they are), reading back only the keys it is given
+      (the counter `query.group_keys_read`). A composite key's decode
+      also carries `radix`, each column's distinct-key count.
 
-    Text keys factorize on the device (_factorize_text_device): only
-    their distinct values reach the host.
+    Text keys factorize on the device (_factorize_text_device), and so do
+    the columns of a composite key of any type (_factorize_values_device):
+    only the distinct keys asked for reach the host. A composite code
+    space past int32 stays on the device as int64 codes.
     """
     GLOBAL.count("query.host_key_rows", 0)
+    GLOBAL.count("query.host_typed_key_rows", 0)
     if isinstance(key, (list, tuple)):
         # composite: factorize each column to dense codes, combine into
         # one mixed-radix code on the device; each factorization is
@@ -2271,15 +2302,9 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
             f = _field_index(names, k)
             col = (parse_spec(spec) if spec is not None
                    else infer_col(tape, names, f, sample))
-            if col.type in ("str", "bytes"):
-                inv, ok, uniq = _factorize_text_device(
-                    *_gather_text_key(tape, f, col, dialect, records))
-            else:
-                vals, ok, _ = _host_key_column(tape, names, f, col,
-                                               dialect, records, sample)
-                uniq, inv = np.unique(vals, return_inverse=True)
-                ok = _to_dev(ok, tape.device, torch.bool)
-            inv = _to_dev(inv, tape.device, torch.int64)
+            inv, ok, uniq = _factorize_key_column(tape, f, col, dialect,
+                                                  records)
+            inv = inv.to(torch.int64)
             ok_all = ok if ok_all is None else (ok_all & ok)
             uniqs.append(uniq)
             cols_meta.append(col)
@@ -2291,23 +2316,24 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
             combo = inv if combo is None else combo * len(uniq) + inv
 
         def decode(codes):
-            out_keys = []
+            idxs = []
             rem = np.asarray(codes, np.int64)
             for uniq in reversed(uniqs):
-                rem, idx = np.divmod(rem, len(uniq))
-                out_keys.append(uniq[idx])
-            out_keys.reverse()
+                rem, idx = np.divmod(rem, max(len(uniq), 1))
+                idxs.append(idx)
+            idxs.reverse()
             return [
-                _decode_key_array(arr, col)
-                for arr, col in zip(out_keys, cols_meta)
+                _decode_key_array(uniq[idx], col)
+                for uniq, idx, col in zip(uniqs, idxs, cols_meta)
             ]
 
+        decode.radix = [len(u) for u in uniqs]
         if combo is None or not combo.shape[0]:
             return ("host", np.zeros(0, np.int64), np.zeros(0, bool),
                     decode)
-        if int(combo.max()) < 2**31 - 1:
+        if space <= 2**31 - 1:
             return ("device", combo.to(torch.int32), ok_all, decode)
-        return ("host", _host(combo), _host(ok_all).astype(bool), decode)
+        return ("device", combo, ok_all, decode)
 
     kf = _field_index(names, key)
     kcol = (parse_spec(key_spec) if key_spec is not None
@@ -2319,21 +2345,73 @@ def _prepare_group_keys(tape, names, key, key_spec, records, dialect,
             *_gather_text_key(tape, kf, kcol, dialect, records))
 
         def decode(code_vals):
-            gk = uniq[np.asarray(code_vals, np.int64)]
-            if kcol.type == "str":
-                gk = np.array(
-                    [b.decode("utf-8", "replace") for b in gk],
-                    dtype=object,
-                )
-            return gk
+            return _decode_key_array(uniq[code_vals], kcol)
 
         return ("device", codes, kok, decode)
     kv, kok, kkind = _parse_column(tape, kf, kcol, dialect,
-                                   records=records)
+                                   records=records, device_i64=True)
     if kkind == "i64host":
-        return ("host", _host(kv), _host(kok).astype(bool),
-                lambda c: c)
-    return ("device", kv, _to_dev(kok, kv.device, torch.bool), lambda c: c)
+        return ("host", _host(kv), _host(kok).astype(bool), _keys_read)
+    return ("device", kv, _to_dev(kok, kv.device, torch.bool), _keys_read)
+
+
+def _keys_read(vals):
+    """decode of keys that are their own values: counts them as read."""
+    GLOBAL.count("query.group_keys_read", int(np.shape(vals)[0]))
+    return vals
+
+
+class _KeyTable:
+    """The G distinct keys of a column factorized on the device, in code
+    order, left there: indexing it with host codes reads back only the
+    keys asked for, each once (the counter `query.group_keys_read`)."""
+
+    def __init__(self, n: int, fetch):
+        self.n, self._fetch = n, fetch
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, codes) -> np.ndarray:
+        want, inv = np.unique(np.asarray(codes, np.int64).reshape(-1),
+                              return_inverse=True)
+        GLOBAL.count("query.group_keys_read", int(want.size))
+        return self._fetch(want)[inv.reshape(-1)]
+
+
+def _factorize_key_column(tape, field: int, col: Col, dialect, records):
+    """One column of a composite key -> (codes (N,), ok (N,) bool, key
+    table), all on the tape's device: text through its decoded bytes,
+    typed columns through their parsed values (decimal and datetime
+    values, which the host puts together, go back up first)."""
+    if col.type in ("str", "bytes"):
+        return _factorize_text_device(
+            *_gather_text_key(tape, field, col, dialect, records))
+    vals, ok, kind = _parse_column(tape, field, col, dialect,
+                                   records=records, device_i64=True)
+    if kind == "i64host":
+        vals = _to_dev(np.asarray(vals, np.int64), tape.device, torch.int64)
+    return _factorize_values_device(vals, _to_dev(ok, tape.device,
+                                                  torch.bool))
+
+
+@GLOBAL.span("query.key_factorize_int")
+def _factorize_values_device(vals, ok):
+    """Typed key values (N,) on the device -> (codes (N,) int64, 0 where
+    not ok; ok; key table of the G distinct valid values, ascending):
+    one sort of the valid rows, a mark where each run starts, a cumsum."""
+    idx = torch.nonzero(ok).squeeze(1)
+    sv, o = torch.sort(vals[idx])
+    first = torch.ones_like(sv, dtype=torch.bool)
+    first[1:] = sv[1:] != sv[:-1]
+    codes = torch.zeros(vals.shape[0], dtype=torch.int64, device=vals.device)
+    codes[idx[o]] = torch.cumsum(first, 0) - 1
+    uniq = sv[first]
+
+    def fetch(want):
+        return _host(uniq[_to_dev(want, uniq.device, torch.int64)])
+
+    return codes, ok, _KeyTable(int(uniq.shape[0]), fetch)
 
 
 def _gather_text_key(tape, field: int, col: Col, dialect, records):
@@ -2352,10 +2430,11 @@ def _gather_text_key(tape, field: int, col: Col, dialect, records):
 @GLOBAL.span("query.key_factorize")
 def _factorize_text_device(out, lengths, valid):
     """Decoded text keys (out (N, W) uint8, lengths, valid) -> (codes
-    (N,) int32, 0 where invalid; valid (N,) bool; uniq (G,) object array
-    of the distinct valid keys, ascending), all but uniq on the keys'
-    device. Code order is Python `bytes` order, and uniq is np.unique of
-    the valid rows' `bytes`.
+    (N,) int32, 0 where invalid; valid (N,) bool; key table of the G
+    distinct valid keys), codes and validity on the keys' device. Code
+    order is Python `bytes` order. The table keeps each key's first row
+    of the sorted runs on the device and reads back only the keys asked
+    for.
 
     Bytes [0, L) (L the longest valid key, one scalar readback), masked
     to each row's length, pack big-endian 7 to a non-negative int64
@@ -2363,7 +2442,7 @@ def _factorize_text_device(out, lengths, valid):
     prefix with its extension by NULs, and the length breaks that tie.
     At L <= 7 bytes and length share one word, and one sort groups the
     rows; longer keys take a stable sort a word. Invalid rows key -1 in
-    every word. Only the G first rows of the sorted runs are read back."""
+    every word."""
     from . import device_tape
     from .window import _changes, _lex_sort
 
@@ -2373,7 +2452,7 @@ def _factorize_text_device(out, lengths, valid):
     valid = valid.to(torch.bool)
     if n == 0:
         return (torch.zeros(0, dtype=torch.int32, device=dev), valid,
-                np.zeros(0, object))
+                _KeyTable(0, lambda want: np.zeros(0, object)))
     ln = torch.where(valid, lengths.to(torch.int64), 0)
     longest = int(ln.max())  # <= W: gather_decoded refuses a cut field
     b = torch.where(torch.arange(longest, device=dev) < ln[:, None],
@@ -2396,18 +2475,25 @@ def _factorize_text_device(out, lengths, valid):
     codes[perm] = torch.where(vs, torch.cumsum(first, 0) - 1,
                               0).to(torch.int32)
     reps = perm[first]
-    raw = device_tape._to_host_lists(out[reps, :longest], lengths[reps],
-                                     valid[reps])
-    uniq = np.empty(len(raw), object)
-    uniq[:] = raw
-    return codes, valid, uniq
+    body = out[:, :longest]
+
+    def fetch(want):
+        rows = reps[_to_dev(want, dev, torch.int64)]
+        raw = device_tape._to_host_lists(
+            body[rows], lengths[rows],
+            torch.ones(rows.shape[0], dtype=torch.bool, device=dev))
+        arr = np.empty(len(raw), object)
+        arr[:] = raw
+        return arr
+
+    return codes, valid, _KeyTable(int(reps.shape[0]), fetch)
 
 
 def _host_key_column(tape, names, field: int, col: Col, dialect,
                      records, sample: int):
-    """One key column as host-factorizable values + ok mask: a typed
-    GROUP BY key, or a join key. Typed columns parse on device and ship
-    the (N,) values once; str/bytes (joins) ship the decoded text."""
+    """One join key column as host-factorizable values + ok mask. Typed
+    columns parse on device and ship the (N,) values once; str/bytes
+    ship the decoded text."""
     if col.type in ("str", "bytes"):
         out, ln, v = _gather_text_key(tape, field, col, dialect, records)
         with GLOBAL.span("query.key_to_host"):
@@ -2457,13 +2543,18 @@ def _host_reduce(n_groups: int, inv, sel, is_float: bool):
 
 
 def _group_single(kind, kv, kok, decode, vv, vok, is_float) -> Dict:
-    """One value column against prepared keys (device or host)."""
+    """One value column against prepared keys (device or host). int64
+    keys with an integer value group on the host, whose exact sums have
+    no 2**20-row ceiling."""
+    if kind == "device" and kv.dtype == torch.int64 and not is_float:
+        kind, kv, kok = "host", _host(kv), _host(kok).astype(bool)
     if kind == "device":
         g = group_aggregate(kv, vv, kok, vok)
         g["keys"] = decode(g["keys"])
         return g
     okh = kok & _host(vok).astype(bool)
     vh = _host(vv)
+    GLOBAL.count("query.host_typed_key_rows", int(okh.shape[0]))
     uk, inv = np.unique(_host(kv)[okh], return_inverse=True)
     sel = vh[okh]
     sums, mins, maxs = _host_reduce(uk.shape[0], inv, sel, is_float)
@@ -2496,9 +2587,17 @@ def _group_multi(kind, kv, kok, decode, values: Dict) -> Dict:
     if kind == "device":
         order, seg, _sok, gk, counts, n_groups = _group_order(kv, kok)
         g = int(n_groups)
+        GLOBAL.count("query.groups", g)
         counts_h = _host(counts[:g]).astype(np.int64)
         if (any(not isf for _, _, isf in values.values())
                 and counts_h.max(initial=0) >= 2**20):
+            if kv.dtype == torch.int64:
+                # int64 values or wide composite codes, which grouped on
+                # the host before they could stay on the device: their
+                # exact host sums have no ceiling
+                return _group_multi("host", _host(kv),
+                                    _host(kok).astype(bool), decode,
+                                    values)
             raise ValueError(
                 "group larger than 2**20 rows: integer digit-split "
                 "sum would not be exact — aggregate per file "
@@ -2519,6 +2618,7 @@ def _group_multi(kind, kv, kok, decode, values: Dict) -> Dict:
         return {"keys": decode(_host(gk[:g])), "count": counts_h,
                 "aggs": aggs}
     okh = _host(kok).astype(bool)
+    GLOBAL.count("query.host_typed_key_rows", int(okh.shape[0]))
     uk, inv = np.unique(_host(kv)[okh], return_inverse=True)
     counts_h = np.bincount(inv, minlength=uk.shape[0]).astype(np.int64)
     aggs = {}
@@ -2826,3 +2926,153 @@ def groupby_typed(source, key, value, *, key_spec=None, value_spec=None,
                           vkind == "float")
     return (_filter_groups(g, _having_mask(g, having))
             if having is not None else g)
+
+
+def _distinct_counts(sv, sok, seg, n: int) -> torch.Tensor:
+    """Distinct values a segment: sv (n,) int64 values in group order,
+    sok their validity, seg each row's segment (ascending) -> (n,) int64
+    counts. Two stable sorts put the valid (segment, value) pairs in
+    order; the first row of each distinct pair counts one."""
+    from .window import _lex_sort
+
+    idx = torch.nonzero(sok).squeeze(1)
+    pairs = torch.stack([seg[idx], sv[idx]])
+    pairs = pairs[:, _lex_sort(pairs)]
+    first = torch.ones(pairs.shape[1], dtype=torch.int64, device=sv.device)
+    first[1:] = (pairs[:, 1:] != pairs[:, :-1]).any(0).to(torch.int64)
+    return _segment_sum(first, pairs[0], n)
+
+
+def _distinct_key(tape, names, col, spec, dialect, records, sample: int):
+    """A COUNT(DISTINCT) column as (int64 keys whose equality is the
+    value's, ok) on the tape's device: text as its factorization's
+    codes, floats as order keys, other types as their values."""
+    f = _field_index(names, col)
+    c = parse_spec(spec) if spec is not None else infer_col(
+        tape, names, f, sample)
+    if c.type in ("str", "bytes"):
+        codes, ok, _ = _factorize_text_device(
+            *_gather_text_key(tape, f, c, dialect, records))
+        return codes.to(torch.int64), ok
+    vals, ok, kind = _parse_column(tape, f, c, dialect, records=records,
+                                   device_i64=True)
+    if kind == "i64host":
+        vals = _to_dev(np.asarray(vals, np.int64), tape.device, torch.int64)
+    elif vals.dtype == torch.float32:
+        vals = _f32_order_keys(vals)
+    return vals.to(torch.int64), _to_dev(ok, tape.device, torch.bool)
+
+
+def groupby_topk(source, key, *, key_spec=None, values=(),
+                 value_specs=None, distinct=(), distinct_specs=None,
+                 order=(), limit=None, where=None, schema=None,
+                 dialect=None, backend: str = "auto",
+                 engine: str = "offsets", sample: int = 256,
+                 device="cuda") -> Dict:
+    """GROUP BY on the device that hands the host only the groups it
+    keeps: the first `limit` (all without one) in `order`, each an
+    (item, descending) pair over "count" (rows a group), ("count", col)
+    (rows whose `col` parsed), ("distinct", col) (COUNT(DISTINCT col))
+    or ("key", i) (the i-th key column's value). Ties keep key order.
+
+    The key prepares as for groupby_typed; the aggregates reduce per
+    group on the device (`values`: int32/float32/float/date columns,
+    their sums, extrema and counts; `distinct`: columns of any type,
+    NULLs not counted); the order's keys sort the G groups there (span
+    `query.group_topk`), and only the kept groups' aggregates and keys
+    are read back. Returns {"keys", "count", "aggs": {col: {"sum",
+    "min", "max", "count"}}, "distinct": {col: counts}}, the groups in
+    `order`."""
+    from .frame import _resolve_tape
+    from .window import _lex_sort
+
+    tape, names = _resolve_tape(source, dialect, backend, engine, False,
+                                device)
+    records = None
+    if where is not None:
+        records = select_records(tape, where, names=names, schema=schema,
+                                 dialect=dialect, sample=sample)
+    kind, kv, kok, decode = _prepare_group_keys(
+        tape, names, key, key_spec, records, dialect, sample)
+    if kind == "host":
+        kv = _to_dev(np.asarray(kv, np.int64), tape.device, torch.int64)
+        kok = _to_dev(kok, tape.device, torch.bool)
+    vspecs = list(value_specs or [None] * len(values))
+    dspecs = list(distinct_specs or [None] * len(distinct))
+    n = int(kv.shape[0])
+    if n == 0:
+        z = np.zeros(0, np.int64)
+        return {"keys": _empty_keys(decode), "count": z,
+                "aggs": {v: {"sum": z, "min": z, "max": z, "count": z}
+                         for v in values},
+                "distinct": {c: z for c in distinct}}
+    perm, seg, sok, gk, counts, n_groups = _group_order(kv, kok)
+    g = int(n_groups)
+    GLOBAL.count("query.groups", g)
+    reduced = {}
+    for v, spec in zip(values, vspecs):
+        f = _field_index(names, v)
+        col = parse_spec(spec) if spec is not None else infer_col(
+            tape, names, f, sample)
+        vv, vok, vkind = _parse_column(tape, f, col, dialect,
+                                       records=records)
+        if vkind not in ("int", "float"):
+            raise ValueError(f"groupby_topk: {v!r} is {col.type}, not a "
+                             "device value column")
+        vok = _to_dev(vok, tape.device, torch.bool) & kok
+        reduced[v] = (_group_reduce(_as_column(vv, tape.device), vok, perm,
+                                    seg, vkind == "float"),
+                      vkind == "float")
+    if any(not isf for _, isf in reduced.values()) and \
+            int(counts[:g].max()) >= 2**20:
+        raise ValueError(
+            "group larger than 2**20 rows: integer digit-split sum would "
+            "not be exact — aggregate per file (CsvCorpus) or shard the "
+            "input first")
+    dcounts = {}
+    for c, spec in zip(distinct, dspecs):
+        dv, dok = _distinct_key(tape, names, c, spec, dialect, records,
+                                sample)
+        dcounts[c] = _distinct_counts(dv[perm], dok[perm] & sok, seg, n)
+
+    with GLOBAL.span("query.group_topk"):
+        items = list(order)
+        # the groups are numbered in key order, and the sorts are stable:
+        # a last ascending sort by a lone key changes nothing
+        while items and items[-1][0] == ("key", 0) and not items[-1][1] \
+                and not isinstance(key, (list, tuple)):
+            items.pop()
+        sort_keys = []
+        for what, desc in items:
+            if what == "count":
+                k = counts[:g].to(torch.int64)
+            elif what[0] == "count":
+                k = reduced[what[1]][0][3][:g].to(torch.int64)
+            elif what[0] == "distinct":
+                k = dcounts[what[1]][:g]
+            elif isinstance(key, (list, tuple)):
+                below = int(np.prod(decode.radix[what[1] + 1:]))
+                k = (gk[:g].to(torch.int64) // below) \
+                    % max(decode.radix[what[1]], 1)
+            else:
+                k = torch.arange(g, device=gk.device)
+            sort_keys.append(-k if desc else k)
+        top = (_lex_sort(torch.stack(sort_keys)) if sort_keys
+               else torch.arange(g, device=gk.device))
+        if limit is not None:
+            top = top[:limit]
+    kept = int(top.shape[0])
+    aggs = {}
+    for v, ((sums, mns, mxs, cnt), isf) in reduced.items():
+        aggs[v] = {
+            "sum": _combine_digit_sums(tuple(x[top] for x in sums), kept,
+                                       isf),
+            "min": _host(mns[top]),
+            "max": _host(mxs[top]),
+            "count": _host(cnt[top]).astype(np.int64),
+        }
+    return {"keys": decode(_host(gk[top])),
+            "count": _host(counts[top]).astype(np.int64),
+            "aggs": aggs,
+            "distinct": {c: _host(d[top]).astype(np.int64)
+                         for c, d in dcounts.items()}}

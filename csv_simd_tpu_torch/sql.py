@@ -4179,6 +4179,26 @@ def _run_groupby(ast: _Ast, src, kw):
             )
     from .query import VExpr
 
+    plan = _device_topk_plan(ast, keys, src, kw)
+    if plan is not None:
+        from .query import groupby_topk
+
+        sch = kw["schema"] or {}
+        values, distinct, order = plan
+        lim = None if ast.limit is None else ast.limit + ast.offset
+        g = groupby_topk(
+            src, keys if len(keys) > 1 else keys[0],
+            key_spec=([sch.get(k) for k in keys] if len(keys) > 1
+                      else sch.get(keys[0])),
+            values=values, value_specs=[sch.get(v) for v in values],
+            distinct=distinct, distinct_specs=[sch.get(c) for c in distinct],
+            order=order, limit=lim, where=ast.where, schema=kw["schema"],
+            engine=kw["engine"], backend=kw["backend"],
+            dialect=kw["dialect"], sample=kw["sample"],
+            device=kw["device"],
+        )
+        return _groups_to_result(ast, keys, g, src=src, kw=kw)
+
     def _vkey(c):
         return c if isinstance(c, str) else str(c)
 
@@ -4267,6 +4287,64 @@ def _run_groupby(ast: _Ast, src, kw):
             for c in dcols
         }
     return _groups_to_result(ast, keys, g, src=src, kw=kw)
+
+
+_TOPK_VALUE_TYPES = ("int32", "float32", "float", "date")
+_TOPK_DISTINCT_TYPES = ("int32", "int64", "float32", "float", "date", "str",
+                        "bytes")
+
+
+def _device_topk_plan(ast: _Ast, keys: List[str], src, kw):
+    """(values, distinct, order) for groupby_topk when the card can
+    reduce, order and cut this GROUP BY itself, else None (the general
+    executor runs it). It does when the statement has a LIMIT or counts
+    DISTINCT values, has no HAVING, reads one table (no corpus), selects
+    only keys and COUNT(*), COUNT(DISTINCT col) or numeric
+    COUNT/SUM/MIN/MAX/AVG, and orders by keys and counts alone."""
+    from .corpus_api import CsvCorpus
+
+    aggs = [it for it in ast.items if it.kind == "agg"]
+    if (isinstance(src, CsvCorpus) or ast.having is not None
+            or (ast.limit is None and not any(it.distinct for it in aggs))):
+        return None
+    values, distinct = [], []
+
+    def _need(it) -> bool:
+        if it.fn == "group_concat" or not (it.col is None
+                                            or isinstance(it.col, str)):
+            return False
+        if it.distinct:
+            if it.fn != "count" or _sql_col_type(
+                    src, it.col, kw) not in _TOPK_DISTINCT_TYPES:
+                return False
+            if it.col not in distinct:
+                distinct.append(it.col)
+        elif it.col is not None:
+            if _sql_col_type(src, it.col, kw) not in _TOPK_VALUE_TYPES:
+                return False
+            if it.col not in values:
+                values.append(it.col)
+        return True
+
+    if not all(_need(it) for it in aggs):
+        return None
+    named = {it.name(): it for it in ast.items}
+    order = []
+    for it, desc in ast.order_by:
+        # a name resolves to the output column first, as the host sort
+        # does; a bare column must be one
+        it = named.get(it.name(), it if it.kind == "agg" else None)
+        if it is None:
+            return None
+        if it.kind == "col" and it.col in keys:
+            order.append((("key", keys.index(it.col)), bool(desc)))
+        elif it.kind == "agg" and it.fn == "count" and _need(it):
+            what = ("count" if it.col is None
+                    else ("distinct" if it.distinct else "count", it.col))
+            order.append((what, bool(desc)))
+        else:
+            return None
+    return values, distinct, order
 
 
 def _pykey(x):

@@ -10,8 +10,10 @@ the host index build (`index.words_to_host`, `index.extract`,
 `device_tape.index_upload`), the packed serve (`offsetfree.serve`,
 `offsetfree.rank_select`, the counter `offsetfree.lookups`) and SQL
 (`sql.parse`, `query.group_keys`, `query.key_factorize`,
-`query.parse_column`, `query.group_reduce`, the counters
-`query.device_key_rows` and `query.host_key_rows`)."""
+`query.key_factorize_int`, `query.parse_column`, `query.group_reduce`,
+`query.group_topk`, the counters `query.device_key_rows`,
+`query.host_key_rows`, `query.host_typed_key_rows`, `query.groups` and
+`query.group_keys_read`)."""
 
 import json
 
@@ -317,6 +319,53 @@ def test_explain_analyze_lists_the_new_spans_and_counters(device_tape):
     rows = len(DATA.splitlines()) - 1
     assert any(ln.split() == ["query.device_key_rows", str(2 * rows),
                               "counted"] for ln in analyze.splitlines())
+
+
+def test_top_k_group_by_spans_its_choice_and_reads_k_keys(device_tape):
+    q = ("SELECT flag, status, COUNT(*) AS n FROM t GROUP BY flag, status "
+         "ORDER BY n DESC, flag, status LIMIT 2")
+    with _Delta() as d:
+        r = ct.sql(q, device_tape, schema=SCHEMA, device="cpu")
+    assert len(r) == 2
+    assert d.calls("query.group_topk") == 1
+    assert d.calls("query.groups") == 6
+    # the two kept groups' flags and statuses, each distinct key once
+    kept = {c: len(set(np.asarray(r[c]).tolist())) for c in r.keys()}
+    assert d.calls("query.group_keys_read") == kept["flag"] + kept["status"]
+    assert d.got["query.groups"][1] == 0.0
+
+
+def test_typed_composite_keys_factorize_on_the_device(device_tape):
+    with _Delta() as d:
+        ct.sql("SELECT qty, day, COUNT(*) AS n FROM t GROUP BY qty, day",
+               device_tape, schema=SCHEMA, device="cpu")
+    assert d.calls("query.key_factorize_int") == 2
+    assert d.got.get("query.host_typed_key_rows", (0,))[0] == 0
+    assert GLOBAL.stages["query.host_typed_key_rows"].counter
+
+
+def test_a_decimal_key_counts_its_rows_grouped_on_the_host(device_tape):
+    rows = len(DATA.splitlines()) - 1
+    with _Delta() as d:
+        r = ct.sql("SELECT price, SUM(qty) AS s FROM t GROUP BY price",
+                   device_tape, schema=dict(SCHEMA, price="decimal:2"),
+                   device="cpu")
+    assert d.calls("query.host_typed_key_rows") == rows
+    assert d.calls("query.group_keys_read") == len(r)
+
+
+def test_explain_analyze_lists_the_top_k_spans_and_counters(device_tape):
+    txt = ct.sql("EXPLAIN ANALYZE SELECT qty, COUNT(DISTINCT day) AS u "
+                 "FROM t GROUP BY qty ORDER BY u DESC, qty LIMIT 3",
+                 device_tape, schema=SCHEMA, device="cpu")
+    analyze = txt.split("-- ANALYZE --", 1)[1]
+    names = {ln.split()[0]: ln.split()[-1] for ln in analyze.splitlines()
+             if ln.startswith("  ")}
+    assert names["query.group_topk"] == "ms"
+    assert names["query.groups"] == names["query.group_keys_read"] == \
+        "counted"
+    assert any(ln.split() == ["query.group_keys_read", "3", "counted"]
+               for ln in analyze.splitlines())
 
 
 def test_a_decorating_span_opens_a_fresh_span_every_call():
