@@ -58,7 +58,12 @@ Phases, each of which fails the run on any error:
    synthetic_wide_table block repeated after its header, a warm-up batch
    and three timed batches of 65,536 random (record, field) lookups, and
    the row-id column, all checked against the 64 MiB block's golden index
-   shifted by whole blocks;
+   shifted by whole blocks; the rank-select kernel (csrc/rank_select.cu)
+   against its plain version in both word layouts, on every k of the
+   64 MiB block's packed tape, sorted and shuffled, and at 1 GiB on a
+   column gather's k, a random sample and the last k, with one launch a
+   gather_column; its time on that column gather beside the plain
+   version's and its bound;
 4. the offsets route on the same file: create(backend="cuda") (B3, the
    words back to the host, native extraction, Tape) with its index held
    entry for entry against the shifted golden index, 65,536 seek_field
@@ -270,7 +275,7 @@ GATED = ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
          "mosaic_probes.cmp8", "mosaic_probes.select8",
          "mosaic_probes.sublane_concat", "mosaic_probes.unsigned_reduce",
          "widestore_probe4.concat_mm", "utf8_errs", "quote_parity",
-         "json_stage1")
+         "json_stage1", "kth_positions")
 # the gather reads 64 of each input row's 512 bytes; a pack product's
 # work is its multiply-adds, which its plain version's op count misses
 READS_AN_EIGHTH = ("widestore_probe2.s8_st16",)
@@ -1088,6 +1093,86 @@ def run_main_path(path: str, device, index: np.ndarray, rows_len: int,
     if not (bool(ok.all()) and np.array_equal(ids.cpu().numpy(), want_ids)):
         raise AssertionError("column_int32(0) differs from the row ids")
     return {"tape": tape, "build_s": build_s, "lookups_per_s": lookups}
+
+
+def column_ranks(tape, field: int) -> torch.Tensor:
+    """The k that gather_column(field) rank-selects on a packed tape, as
+    `offsetfree._serve` makes them: every record's start bit, then its
+    end bit (2 N int32 on the tape's device)."""
+    recs = torch.arange(tape.num_data_records, dtype=torch.int32,
+                        device=tape.device)
+    slots = (recs + 1) * tape.jump + field
+    return torch.cat([slots - 1, slots])
+
+
+def gate_kth(gate: Gate, words: torch.Tensor, cum: torch.Tensor,
+             ks: torch.Tensor, what: str) -> torch.Tensor:
+    """The rank-select kernel against its plain version on the card, in
+    both word layouts; returns the kernel's positions."""
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.offsetfree import _kth_positions_plain
+
+    want = _kth_positions_plain(words, cum, ks)
+    for layout in (words.view(-1, 128), words.view(-1, 16)):
+        got = _kernels.kth_positions(layout, cum, ks)
+        gate.same("kth_positions", got, want, what)
+    return got
+
+
+def kth_bound(ks: torch.Tensor, pos: torch.Tensor, rows: int) -> tuple:
+    """The rank-select kernel's bound on ks (bound() entry: ms, by, bytes
+    moved, operations, rate): it reads each k and writes each position,
+    reads the row prefix once and each row of words that holds an answer
+    once (64 bytes); its operations a query are the kernel's own: three
+    a level of the binary search over the rows, three a word of the
+    running popcount, 15 selects of the hit word, six a step of the
+    five-step select and four for the answer."""
+    q = ks.numel()
+    touched = int(torch.unique(torch.div(pos, 512,
+                                         rounding_mode="floor")).numel())
+    moved = 8 * q + 4 * rows + 64 * touched
+    ops = q * (3 * int(np.ceil(np.log2(rows + 1))) + 3 * 16 + 15 + 6 * 5
+               + 4)
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", moved, ops,
+            INT32_OPS_PER_S)
+
+
+def run_rank_select(gate: Gate, device, block: bytes, tape) -> dict:
+    """The rank-select kernel gated against its plain version on the card:
+    every k of the 64 MiB block's packed tape, sorted and shuffled, and on
+    the 1 GiB tape a column gather's 2 N k, a random sample and the last
+    k; then the column gather's k timed through the kernel and the plain
+    version, and its bound."""
+    from csv_simd_tpu_torch import PackedDeviceTape, _kernels
+    from csv_simd_tpu_torch.offsetfree import _kth_positions_plain
+    from csv_simd_tpu_torch.tools._common import cuda_ms
+
+    bt = PackedDeviceTape(block, device=device)
+    total = int(bt.cum_incl[-1])
+    gen = torch.Generator(device=device).manual_seed(215)
+    every = torch.arange(total, dtype=torch.int32, device=device)
+    gate_kth(gate, bt.words, bt.cum_incl, every, "64 MiB, every k sorted")
+    shuffled = every[torch.randperm(total, generator=gen,
+                                    device=device)].contiguous()
+    gate_kth(gate, bt.words, bt.cum_incl, shuffled,
+             "64 MiB, every k shuffled")
+    del bt, every, shuffled
+    words, cum = tape.words, tape.cum_incl
+    total = int(cum[-1])
+    ks = column_ranks(tape, 1)
+    pos = gate_kth(gate, words, cum, ks, "1 GiB, column gather of field 1")
+    sample = torch.cat([torch.randint(0, total, (1 << 20,), generator=gen,
+                                      device=device, dtype=torch.int32),
+                        torch.tensor([0, total - 1], dtype=torch.int32,
+                                     device=device)])
+    gate_kth(gate, words, cum, sample, "1 GiB, random k and the last")
+    return {"records": int(tape.num_data_records), "queries": ks.numel(),
+            "ms": cuda_ms(lambda: _kernels.kth_positions(words, cum, ks), 20),
+            "plain_ms": cuda_ms(lambda: _kth_positions_plain(words, cum, ks),
+                                3),
+            "bound": kth_bound(ks, pos, cum.numel())}
 
 
 def check_index(got: np.ndarray, index: np.ndarray, rows_len: int) -> None:
@@ -3060,12 +3145,21 @@ def main() -> int:
                            per_block)
     need(l_packed, "stage1_v4", 1, "create_packed")
     need(l_packed, "row_prefix", 1, "create_packed")
+    need(l_packed, "kth_positions", 1, "lookups")
     print(f"create_packed: {res['build_s']:.4f} s "
           f"({size / res['build_s'] / 1e9:.3f} GB/s end to end, first call), "
           f"{BATCHES + 1}x{BATCH} lookups checked "
           f"({res['lookups_per_s']:.0f} lookups/s over {BATCHES} batches "
           f"after a warm-up batch), row ids checked; launches {l_packed}")
-    packed = res.pop("tape").words
+    main_tape = res.pop("tape")
+    packed = main_tape.words
+    # the rank-select kernel on the 64 MiB block and the 1 GiB tape
+    kth = run_rank_select(gate, device, block, main_tape)
+    del main_tape
+    torch.cuda.empty_cache()
+    print(f"rank-select (kth_positions): gated on every k of the 64 MiB "
+          f"block and on {kth['queries']} k of a column gather of "
+          f"{kth['records']} records at 1 GiB, both layouts")
 
     # path 2: the offsets route (B3 + host extraction -> Tape)
     route, l_create = driven(run_offsets_route, path, device, index,
@@ -3537,6 +3631,12 @@ def main() -> int:
           f"{dt_lookups:.0f} lookups/s; PackedDeviceTape "
           f"{res['lookups_per_s']:.0f} lookups/s")
 
+    kth_b = kth["bound"]
+    print(f"rank-select (kth_positions) on {card}, a column gather of "
+          f"{kth['records']} records ({kth['queries']} k, sorted halves) at "
+          f"1 GiB: kernel {kth['ms']:.4f} ms, plain {kth['plain_ms']:.3f} ms, "
+          f"bound {kth_b[0]:.4f} ms {kth_b[1]} ({kth_b[2]:.4g} B, "
+          f"{kth_b[3]:.4g} ops)")
     b1g = u8["bound_1GiB"]
     print(f"UTF-8 validator on {card}: 64 MiB {u8['ms']:.4f} ms (CUDA graph; "
           f"eager {u8['eager_ms']:.4f}; plain {u8['plain_ms']:.3f}; bound "
@@ -3771,6 +3871,9 @@ def main() -> int:
         ("json_depths_device", "cuda", "json_stage1.cu",
          "csv_simd_tpu/experiments/json_device.py:93", "json_stage1",
          js["launches"]["json-index"], "json_stage1"),
+        ("_kth_positions", "cuda", "rank_select.cu",
+         "csv_simd_tpu/offsetfree.py:215", "kth_positions", l_packed,
+         "kth_positions"),
     )
     # the input bytes each kernel's `ms` was timed on
     gib, blk_words = padded_rows(size) * ROW_BYTES, BLOCK_BYTES
@@ -3798,6 +3901,10 @@ def main() -> int:
     # call computes it
     bound["json_stage1"] = jb
     ms["json_stage1"], ms["json_stage1_plain"] = js["ms"], js["plain_ms"]
+    # rank-select's: a column gather's k at 1 GiB, the rows they touch
+    bound["kth_positions"] = kth["bound"]
+    ms["kth_positions"], ms["kth_positions_plain"] = kth["ms"], \
+        kth["plain_ms"]
     kernels = [
         {"name": name, "route": route_, "source": src + source,
          "replaces": replaces, "launches": launches[counter],

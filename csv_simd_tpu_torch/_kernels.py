@@ -48,7 +48,7 @@ LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
             "probe_mosaic_gather": 0, "probe_mosaic_cmp8": 0,
             "probe_mosaic_select8": 0, "probe_mosaic_shift_add": 0,
             "probe_mosaic_usum": 0, "probe_concat_mm": 0, "utf8_errs": 0,
-            "quote_parity": 0, "json_stage1": 0}
+            "quote_parity": 0, "json_stage1": 0, "kth_positions": 0}
 _lib = None
 _alu_op_counts = None
 _alu_const_arrays = {}
@@ -199,6 +199,8 @@ def _library():
         lib.csv_utf8_errs.restype = i
         lib.csv_quote_parity.argtypes = [vp, ll, i, vp, vp]
         lib.csv_quote_parity.restype = i
+        lib.csv_kth_positions.argtypes = [vp, vp, ll, vp, ll, vp, vp]
+        lib.csv_kth_positions.restype = i
         lib.csv_json_stage1_segments.argtypes = [ll]
         lib.csv_json_stage1_segments.restype = ll
         lib.csv_json_stage1.argtypes = [vp, ll, vp, vp, vp, vp, vp]
@@ -531,6 +533,43 @@ def quote_parity(words: torch.Tensor, quote: int) -> torch.Tensor:
                                           _stream(dev))
     _raise_on(err, "quote_parity")
     LAUNCHES["quote_parity"] += 1
+    return out
+
+
+def kth_positions(words: torch.Tensor, cum_incl: torch.Tensor,
+                  ks: torch.Tensor) -> torch.Tensor:
+    """Rank-select (csrc/rank_select.cu) on the card: the packed words
+    (rows * 16 int32 in row-major order, the narrow or wide layout), their
+    (rows,) int32 inclusive row prefix and (Q,) int32 ranks -> (Q,) int32
+    flat byte positions of the k-th set bits, bit for bit those of
+    `offsetfree._kth_positions_plain` for 0 <= k < total (unspecified
+    otherwise; the kernel reads only inside the index). One launch; none
+    for Q = 0."""
+    _check_words(words, "kth_positions")
+    for t, what in ((cum_incl, "kth_positions cum_incl"),
+                    (ks, "kth_positions ks")):
+        if t.device != words.device:
+            raise ValueError(f"{what}: expected {words.device}, got "
+                             f"{t.device}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{what}: expected torch.int32, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{what}: expected a contiguous 1-D tensor, "
+                             f"got {tuple(t.shape)}")
+    rows = cum_incl.numel()
+    if rows == 0 or rows * 16 != words.numel():
+        raise ValueError(f"kth_positions: {words.numel()} words are not 16 "
+                         f"for each of the prefix's {rows} rows")
+    dev = words.device
+    with torch.cuda.device(dev):
+        out = torch.empty(ks.numel(), dtype=torch.int32, device=dev)
+        if ks.numel() == 0:
+            return out
+        err = _library().csv_kth_positions(
+            words.data_ptr(), cum_incl.data_ptr(), rows, ks.data_ptr(),
+            ks.numel(), out.data_ptr(), _stream(dev))
+    _raise_on(err, "kth_positions")
+    LAUNCHES["kth_positions"] += 1
     return out
 
 

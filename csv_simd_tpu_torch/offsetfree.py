@@ -5,7 +5,8 @@ The index is the sequential packed structural bitmask (1 bit per input
 byte, kernel B1) plus the inclusive popcount prefix over its 512-byte
 rows (kernel B2). A tape slot lookup (the k-th structural byte) is a
 searchsorted on the row prefix, a popcount scan of the hit row's 16
-words, and a rank-select inside the hit word; serving then gathers the
+words, and a rank-select inside the hit word: on the card one launch of
+the rank-select kernel (csrc/rank_select.cu). Serving then gathers the
 bytes between two slots. Slot arithmetic is the reference's: slot =
 (r+1)*jump + f, value = bytes[pos(slot-1)+1 : pos(slot)].
 """
@@ -79,12 +80,25 @@ def _select_bit(w: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
 
 def _kth_positions(words2d: torch.Tensor, row_cum_incl: torch.Tensor,
                    ks: torch.Tensor) -> torch.Tensor:
-    """Flat byte positions of the k-th set bits (0 <= k < total bits).
+    """Flat byte positions of the k-th set bits (0 <= k < total bits):
+    one launch of the rank-select kernel (`_kernels.kth_positions`) on a
+    CUDA tensor, the plain version on a CPU tensor. Positions for k
+    outside the index are unspecified, as in the JAX package, whose
+    out-of-range gathers clamp."""
+    if ks.device.type == "cuda":
+        from . import _kernels
 
-    A searchsorted on the row prefix finds the row; that row's 16 words
-    are gathered by flat index (narrow and wide layouts alike) and
-    scanned per query. Positions for k outside the index are unspecified,
-    as in the JAX package, whose out-of-range gathers clamp."""
+        GLOBAL.count("offsetfree.kth_kernel_queries", ks.shape[0])
+        return _kernels.kth_positions(words2d, row_cum_incl, ks)
+    return _kth_positions_plain(words2d, row_cum_incl, ks)
+
+
+def _kth_positions_plain(words2d: torch.Tensor, row_cum_incl: torch.Tensor,
+                         ks: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the rank-select kernel (the JAX package's
+    `_kth_positions`), on any device: a searchsorted on the row prefix
+    finds the row; that row's 16 words are gathered by flat index (narrow
+    and wide layouts alike) and scanned per query."""
     rows = row_cum_incl.shape[0]
     row, j = _row_and_rank(row_cum_incl, ks)
     cols = torch.arange(16, dtype=torch.int32, device=ks.device)

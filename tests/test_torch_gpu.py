@@ -16,7 +16,11 @@ import torch
 import csv_simd_tpu_torch as ct
 from csv_simd_tpu_torch import Dialect, PackedDeviceTape, create_packed
 from csv_simd_tpu_torch import _kernels, golden
-from csv_simd_tpu_torch.offsetfree import _prefix_for_packed_xla, prefix_for_packed
+from csv_simd_tpu_torch.offsetfree import (
+    _kth_positions_plain,
+    _prefix_for_packed_xla,
+    prefix_for_packed,
+)
 from csv_simd_tpu_torch.ops.stage1_pallas import _stage1_pallas_plain, stage1_pallas
 from csv_simd_tpu_torch.ops.stage1_v2 import stage1_pallas_v2, stage1_swar_jnp
 from csv_simd_tpu_torch.ops.stage1_v3 import (
@@ -29,6 +33,7 @@ from csv_simd_tpu_torch.ops.stage1_v3 import (
 from csv_simd_tpu_torch.ops.stage1_v4 import _stage1_v4_plain, stage1_fused_v4
 
 from corpus import all_cases, synthetic_wide_table
+from rank_select_cases import CASES, RANKS, ranks, words_for
 
 DIALECTS = ({}, dict(delimiter=0x3B, quote=0x27), dict(quote=0xA2))
 
@@ -2044,3 +2049,114 @@ def test_text_key_factorize_on_the_card_matches_the_cpu(cuda_device, case):
         assert torch.equal(got[1].cpu(), want[1])
         assert list(got[2][np.arange(len(got[2]))]) == \
             list(want[2][np.arange(len(want[2]))])
+
+
+def _kth_on_card(words: np.ndarray, layout: str, device):
+    """(CPU words, their plain prefix, card words, B2's prefix) in the
+    layout."""
+    shaped = words if layout == "narrow" else words.reshape(-1, 128)
+    cpu = torch.from_numpy(np.ascontiguousarray(shaped))
+    card = cpu.to(device)
+    return cpu, _prefix_for_packed_xla(cpu), card, prefix_for_packed(card)
+
+
+def _same_kth(ks: np.ndarray, cpu, cpu_cum, card, card_cum) -> None:
+    """The kernel on the card against the plain version on the CPU, bit
+    for bit, with one launch (none for Q = 0)."""
+    before = _kernels.launch_counts()["kth_positions"]
+    got = _kernels.kth_positions(
+        card, card_cum, torch.from_numpy(ks).to(card.device))
+    assert _kernels.launch_counts()["kth_positions"] == \
+        before + (1 if ks.size else 0)
+    torch.cuda.synchronize()
+    want = _kth_positions_plain(cpu, cpu_cum, torch.from_numpy(ks))
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("case", CASES)
+def test_kth_kernel_matches_plain(cuda_device, case, layout):
+    """The rank-select kernel against the plain `_kth_positions` on the
+    same words on the CPU, for every valid k sorted and shuffled, the k at
+    each row boundary, Q = 1 and Q = 0: empty rows, rows of 512 set bits,
+    bits in the last place of a word and of a row, one bit a row, random
+    words."""
+    words = words_for(case, rows=4096, seed=CASES.index(case) + 21)
+    parts = _kth_on_card(words, layout, cuda_device)
+    for kind in RANKS:
+        _same_kth(ranks(kind, words, seed=3), *parts)
+
+
+@pytest.mark.gpu
+def test_kth_kernel_past_two_to_the_22_rows(cuda_device):
+    """A prefix of more than 2^22 rows (a binary search 23 levels deep):
+    one set bit in most rows, random words in a few, every valid k in
+    order and a shuffled sample. Positions of rows from 2^22 on pass
+    2^31 and wrap as int32 in both versions."""
+    rows = (1 << 22) + 4096
+    rng = np.random.default_rng(22)
+    words = np.zeros((rows, 16), np.int32)
+    bit = rng.integers(0, 512, rows)
+    hit = rng.random(rows) < 0.9
+    words[hit, bit[hit] // 32] = (np.uint32(1) << (bit[hit] % 32).astype(
+        np.uint32)).view(np.int32)
+    dense = rng.random(rows) < 0.002
+    words[dense] = rng.integers(-2**31, 2**31, (int(dense.sum()), 16),
+                                dtype=np.int64).astype(np.int32)
+    for layout in ("narrow", "wide"):
+        parts = _kth_on_card(words, layout, cuda_device)
+        total = int(parts[1][-1])
+        _same_kth(np.arange(total, dtype=np.int32), *parts)
+        _same_kth(rng.permutation(total)[:200_000].astype(np.int32), *parts)
+
+
+@pytest.mark.gpu
+def test_kth_kernel_outside_the_index_reads_inside_it(cuda_device):
+    """k >= total, negative k and the int32 extremes: the answer is
+    unspecified, and the kernel runs to its end with no fault."""
+    for case in ("random", "empty_rows"):
+        _, cpu_cum, card, card_cum = _kth_on_card(words_for(case, seed=5),
+                                                  "narrow", cuda_device)
+        total = int(cpu_cum[-1])
+        ks = torch.tensor([total, total + 1, total + 10**6, 2**31 - 1, -1,
+                           -2**31, 0], dtype=torch.int32, device=cuda_device)
+        got = _kernels.kth_positions(card, card_cum, ks)
+        torch.cuda.synchronize()
+        assert got.shape == (7,)
+
+
+@pytest.mark.gpu
+def test_kth_kernel_rejects_bad_input(cuda_device):
+    w = torch.zeros((64, 16), dtype=torch.int32, device=cuda_device)
+    cum = prefix_for_packed(w)
+    ks = torch.zeros(5, dtype=torch.int32, device=cuda_device)
+    for bad in ((w.cpu(), cum, ks), (w, cum.cpu(), ks), (w, cum, ks.cpu()),
+                (w.to(torch.int64), cum, ks), (w, cum.to(torch.int64), ks),
+                (w, cum, ks.to(torch.int64)), (w.t(), cum, ks),
+                (w, cum[::2], ks), (w, cum, ks.view(5, 1)), (w, cum[:63], ks),
+                (w[:0], cum[:0], ks)):
+        with pytest.raises(ValueError):
+            _kernels.kth_positions(*bad)
+
+
+@pytest.mark.gpu
+def test_gather_column_takes_the_rank_select_kernel(cuda_device):
+    """One gather_column on a packed tape on the card: one launch of the
+    kernel, its 2 N queries counted, and the column equal to the CPU
+    tape's."""
+    from csv_simd_tpu_torch.utils.metrics import GLOBAL
+
+    data = synthetic_wide_table(300_000)
+    gpu = PackedDeviceTape(data, device=cuda_device)
+    cpu = PackedDeviceTape(data, device="cpu")
+    st = GLOBAL.stages.get("offsetfree.kth_kernel_queries")
+    queries = st.calls if st is not None else 0
+    before = _kernels.launch_counts()["kth_positions"]
+    got = gpu.gather_column(3, max_len=48)
+    assert _kernels.launch_counts()["kth_positions"] == before + 1
+    assert GLOBAL.stages["offsetfree.kth_kernel_queries"].calls == \
+        queries + 2 * gpu.num_data_records
+    for g, c in zip(got, cpu.gather_column(3, max_len=48)):
+        assert torch.equal(g.cpu(), c)

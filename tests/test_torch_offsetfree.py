@@ -27,6 +27,7 @@ from csv_simd_tpu_torch.offsetfree import (
 from csv_simd_tpu_torch.ops.stage1_v2 import pad_to_words
 
 from corpus import basic_cases, synthetic_wide_table
+from rank_select_cases import CASES, RANKS, brute_positions, ranks, words_for
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -99,6 +100,52 @@ def test_kth_positions_matches_jax_and_golden(layout):
     _same(got, offs[ks])
     _same(got, j_kth_positions(jnp.asarray(words), jnp.asarray(cum.numpy()),
                                jnp.asarray(ks)))
+
+
+@pytest.mark.parametrize("kind", RANKS)
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
+@pytest.mark.parametrize("case", CASES)
+def test_kth_positions_matches_brute_force(case, layout, kind):
+    """The plain version, which the card's rank-select kernel is held to,
+    against the positions of the unpacked bits and the JAX package's
+    `_kth_positions`: empty rows, rows of 512 set bits, bits in the last
+    place of a word and of a row, one bit a row and random words; every k
+    sorted and shuffled, the k at each row boundary, Q = 1 and Q = 0."""
+    words = words_for(case, seed=CASES.index(case))
+    shaped = words if layout == "narrow" else words.reshape(-1, 128)
+    tw = torch.from_numpy(shaped.copy())
+    cum = prefix_for_packed(tw)
+    ks = ranks(kind, words, seed=7)
+    got = _kth_positions(tw, cum, torch.from_numpy(ks))
+    assert got.dtype == torch.int32 and got.shape == ks.shape
+    _same(got, brute_positions(words)[ks].astype(np.int32))
+    _same(got, j_kth_positions(jnp.asarray(shaped), jnp.asarray(cum.numpy()),
+                               jnp.asarray(ks)))
+
+
+def test_cpu_rank_select_never_reaches_the_kernels(monkeypatch):
+    """A CPU tensor takes the plain version: the kernel's wrapper is not
+    called, launches nothing and the kernel's counter does not move."""
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.utils.metrics import GLOBAL
+
+    def refuse(*args):
+        raise AssertionError("a CPU tensor reached _kernels.kth_positions")
+
+    monkeypatch.setattr(_kernels, "kth_positions", refuse)
+    launches = _kernels.launch_counts()["kth_positions"]
+    st = GLOBAL.stages.get("offsetfree.kth_kernel_queries")
+    before = st.calls if st is not None else 0
+    words = words_for("random")
+    tw = torch.from_numpy(words.copy())
+    ks = ranks("sorted", words)
+    _same(_kth_positions(tw, prefix_for_packed(tw), torch.from_numpy(ks)),
+          brute_positions(words)[ks].astype(np.int32))
+    tape = PackedDeviceTape(synthetic_wide_table(20_000), device="cpu")
+    tape.gather_column(2, max_len=32)
+    assert _kernels.launch_counts()["kth_positions"] == launches
+    st = GLOBAL.stages.get("offsetfree.kth_kernel_queries")
+    assert (st.calls if st is not None else 0) == before
 
 
 def _queries(n_records: int, n_fields: int, seed: int):
