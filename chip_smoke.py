@@ -918,10 +918,10 @@ def probe_trace(words: torch.Tensor) -> dict:
     and for the gather a quarter of those bytes as the table and the words
     & 127 as indices) and the concat product, and two of every ALU op
     count and mix on words."""
-    from csv_simd_tpu_torch import _kernels
     from csv_simd_tpu_torch.ops.stage1_v2 import stage1_pallas_v2
     from csv_simd_tpu_torch.ops.stage1_v4 import stage1_fused_v4
     from csv_simd_tpu_torch.tools import (
+        _lab_kernels,
         ablate,
         ablate2,
         dma_probe,
@@ -953,7 +953,7 @@ def probe_trace(words: torch.Tensor) -> dict:
                         ablate.mk(words, mode, tile, 1)
                 stage1_fused_v4(words, 1, count_nonascii=False)
                 stage1_pallas_v2(words, 1)
-                for cut in _kernels.ABLATE2_CUTS:
+                for cut in _lab_kernels.ABLATE2_CUTS:
                     ablate2.mk(words, cut, 512, 1)
                 for name in ("nopar", "lanescan", "roll"):
                     kbench.make_variant(as_bytes, name, 1024, 1)
@@ -971,7 +971,7 @@ def probe_trace(words: torch.Tensor) -> dict:
                 mosaic_probes.shift_add(words)
                 mosaic_probes.unsigned_sum(words)
             for _ in range(2):
-                for n_ops in _kernels.probe_alu_op_counts():
+                for n_ops in _lab_kernels.probe_alu_op_counts():
                     for mix in vpu_roofline.MIXES:
                         vpu_roofline.probe(words, n_ops, mix, 1)
         per, _busy = _device_ops(os.path.join(trace_dir,
@@ -2993,13 +2993,16 @@ def run_json_cli_path(gate: Gate, device, block: bytes, index: np.ndarray,
 
 
 def driven(fn, *args, **kw) -> tuple:
-    """fn's result and the launch counts of its run alone."""
+    """fn's result and the launch counts of its run alone: the product's
+    kernels and the lab's probes."""
     from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.tools import _lab_kernels
 
     _kernels.reset_launch_counts()
+    _lab_kernels.reset_launch_counts()
     out = fn(*args, **kw)
     torch.cuda.synchronize()
-    return out, _kernels.launch_counts()
+    return out, {**_kernels.launch_counts(), **_lab_kernels.launch_counts()}
 
 
 def _sum(per_size: dict) -> dict:
@@ -3064,6 +3067,7 @@ def main() -> int:
         stage1_fused_v4,
     )
     from csv_simd_tpu_torch.tools import (
+        _lab_kernels,
         ablate,
         ablate2,
         dma_probe,
@@ -3093,12 +3097,13 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    info = _kernels.build(verbose=True)
-    print(f"build: {info['seconds']:.3f} s -> "
-          f"{os.path.relpath(info['path'], REPO)}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for lib in (_kernels, _lab_kernels):
+        info = lib.build(verbose=True)
+        print(f"build: {info['seconds']:.3f} s -> "
+              f"{os.path.relpath(info['path'], REPO)}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
     t0 = time.perf_counter()
     extractor = "native" if native.available() else "numpy"
     print(f"host extractor: {extractor} ({time.perf_counter() - t0:.3f} s"
@@ -3340,7 +3345,7 @@ def main() -> int:
         # words as bytes, the direct fold pack
         gate.record("ablate2", ablate2.check(w))
         ab2[at], l_ab2[at] = driven(ablate2.run, w)
-        need(l_ab2[at], "probe_ablate2", len(_kernels.ABLATE2_CUTS),
+        need(l_ab2[at], "probe_ablate2", len(_lab_kernels.ABLATE2_CUTS),
              f"ablate2.run at {at}")
         gate.record("kbench", kbench.check(kbench.as_bytes(w)))
         kb[at], l_kb[at] = driven(kbench.run, kbench.as_bytes(w))
@@ -3801,77 +3806,78 @@ def main() -> int:
         f"{time.perf_counter() - t_run:.1f} s")
     if any(sys.modules.get(m) is not None for m in ("jax", "csv_simd_tpu")):
         raise AssertionError("the port imported JAX or the JAX package")
-    src = "csv_simd_tpu_torch/csrc/"
+    src = "csv_simd_tpu_torch/"
     table = (
-        ("stage1_fused_v4", "cuda", "stage1_v4.cu",
+        ("stage1_fused_v4", "cuda", "csrc/stage1_v4.cu",
          "csv_simd_tpu/ops/stage1_v4.py:147", "stage1_v4", l_packed,
          "stage1_v4"),
-        ("prefix_for_packed", "cuda", "prefix.cu",
+        ("prefix_for_packed", "cuda", "csrc/prefix.cu",
          "csv_simd_tpu/offsetfree.py:107", "row_prefix", l_packed,
          "row_prefix"),
-        ("stage1_fused", "cuda", "relayout.cu",
+        ("stage1_fused", "cuda", "csrc/relayout.cu",
          "csv_simd_tpu/ops/stage1_v3.py:106", "stage1_fold", l_create,
          "stage1_fold"),
-        ("stage1_fused_seq", "cuda", "stage1_v4.cu",
+        ("stage1_fused_seq", "cuda", "csrc/stage1_v4.cu",
          "csv_simd_tpu/ops/stage1_v3.py:238", "stage1_v4", l_seq,
          "stage1_seq"),
-        ("stage1_pallas_v2", "cuda", "stage1_pack.cu",
+        ("stage1_pallas_v2", "cuda", "csrc/stage1_pack.cu",
          "csv_simd_tpu/ops/stage1_v2.py:66", "stage1_v2", l_v2,
          "stage1_v2"),
-        ("stage1_pallas", "cuda", "relayout.cu",
+        ("stage1_pallas", "cuda", "csrc/relayout.cu",
          "csv_simd_tpu/ops/stage1_pallas.py:73", "stage1_v1", l_v1,
          "stage1_v1"),
-        ("stage1_fused_v4[emit]", "cuda", "stage1_v4.cu",
+        ("stage1_fused_v4[emit]", "cuda", "csrc/stage1_v4.cu",
          "csv_simd_tpu/ops/stage1_v4.py:707", "stage1_v4_emit", _sum(l_ab),
          "stage1_v4_emit"),
-        ("dma_probe", "cuda", "probe_stream.cu", "tools/dma_probe.py:47",
-         "probe_stream_write", _sum(l_dma1), "dma_probe"),
-        ("dma_probe2.write", "cuda", "probe_stream.cu",
+        ("dma_probe", "cuda", "tools/csrc/probe_stream.cu",
+         "tools/dma_probe.py:47", "probe_stream_write", _sum(l_dma1),
+         "dma_probe"),
+        ("dma_probe2.write", "cuda", "tools/csrc/probe_stream.cu",
          "tools/dma_probe2.py:62", "probe_stream_write", _sum(l_dma2w),
          "dma_probe2.write"),
-        ("dma_probe2.read", "cuda", "probe_stream.cu",
+        ("dma_probe2.read", "cuda", "tools/csrc/probe_stream.cu",
          "tools/dma_probe2.py:90", "probe_stream_read", _sum(l_dma2r),
          "dma_probe2.read"),
-        ("vpu_roofline", "cuda", "probe_alu.cu", "tools/vpu_roofline.py:95",
-         "probe_alu", l_vpu, "vpu_roofline"),
-        ("ablate", "cuda", "probe_ablate.cu", "tools/ablate.py:149",
+        ("vpu_roofline", "cuda", "tools/csrc/probe_alu.cu",
+         "tools/vpu_roofline.py:95", "probe_alu", l_vpu, "vpu_roofline"),
+        ("ablate", "cuda", "tools/csrc/probe_ablate.cu", "tools/ablate.py:149",
          "probe_ablate", _sum(l_abl), "ablate"),
-        ("ablate2", "cuda", "probe_ablate2.cu", "tools/ablate2.py:136",
-         "probe_ablate2", _sum(l_ab2), "ablate2"),
-        ("kbench", "cuda", "relayout.cu", "tools/kbench.py:142",
+        ("ablate2", "cuda", "tools/csrc/probe_ablate2.cu",
+         "tools/ablate2.py:136", "probe_ablate2", _sum(l_ab2), "ablate2"),
+        ("kbench", "cuda", "csrc/relayout.cu", "tools/kbench.py:142",
          "probe_kbench", _sum(l_kb), "kbench"),
-        ("vnext", "cuda", "probe_vnext.cu", "tools/vnext.py:85",
+        ("vnext", "cuda", "tools/csrc/probe_vnext.cu", "tools/vnext.py:85",
          "probe_vnext", _sum(l_vn), "vnext"),
-        ("widestore_probe2.s8_st16", "cuda", "probe_widestore.cu",
+        ("widestore_probe2.s8_st16", "cuda", "tools/csrc/probe_widestore.cu",
          "tools/widestore_probe2.py:44", "probe_ws_gather", _sum(l_ws2),
          "widestore_probe2.s8_st16"),
-        ("widestore_probe2.mmL", "cuda", "probe_concatmm.cu",
+        ("widestore_probe2.mmL", "cuda", "tools/csrc/probe_concatmm.cu",
          "tools/widestore_probe2.py:87", "probe_ws_packmm", _sum(l_ws2),
          "widestore_probe2.mmL"),
-        ("widestore_probe3.laneload", "cuda", "probe_widestore.cu",
+        ("widestore_probe3.laneload", "cuda", "tools/csrc/probe_widestore.cu",
          "tools/widestore_probe3.py:41", "probe_ws_lanesum", _sum(l_ws3),
          "widestore_probe3.laneload"),
-        ("widestore_probe3.mmLb", "cuda", "probe_concatmm.cu",
+        ("widestore_probe3.mmLb", "cuda", "tools/csrc/probe_concatmm.cu",
          "tools/widestore_probe3.py:75", "probe_ws_packmm", _sum(l_ws3),
          "widestore_probe3.mmLb"),
-        *((f"mosaic_probes.{probe}", "cuda", "probe_mosaic.cu",
+        *((f"mosaic_probes.{probe}", "cuda", "tools/csrc/probe_mosaic.cu",
            f"tools/mosaic_probes.py:{MOSAIC_LINES[probe]}",
            mosaic_probes.LAUNCH_COUNTER[kernel], l_mos,
            f"mosaic_probes.{probe}")
           for probe, kernel in mosaic_probes.PROBE_KERNEL.items()),
-        ("widestore_probe4.concat_mm", "cuda", "probe_concatmm.cu",
+        ("widestore_probe4.concat_mm", "cuda", "tools/csrc/probe_concatmm.cu",
          "tools/widestore_probe4.py:40", "probe_concat_mm", _sum(l_ws4),
          "widestore_probe4.concat_mm"),
-        ("validate_utf8_device", "cuda", "utf8.cu",
+        ("validate_utf8_device", "cuda", "csrc/utf8.cu",
          "csv_simd_tpu/ops/utf8.py:97", "utf8_errs", u8["launches"],
          "utf8_errs"),
-        ("_local_parity", "cuda", "shard_parity.cu",
+        ("_local_parity", "cuda", "csrc/shard_parity.cu",
          "csv_simd_tpu/parallel/sharded.py:51", "quote_parity",
          sh["launches"], "quote_parity"),
-        ("json_depths_device", "cuda", "json_stage1.cu",
+        ("json_depths_device", "cuda", "csrc/json_stage1.cu",
          "csv_simd_tpu/experiments/json_device.py:93", "json_stage1",
          js["launches"]["json-index"], "json_stage1"),
-        ("_kth_positions", "cuda", "rank_select.cu",
+        ("_kth_positions", "cuda", "csrc/rank_select.cu",
          "csv_simd_tpu/offsetfree.py:215", "kth_positions", l_packed,
          "kth_positions"),
     )

@@ -121,38 +121,64 @@ def _take_fill(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(idx < width, got, _INT32_MIN)
 
 
+def _slots(records: torch.Tensor, fields: torch.Tensor, jump: int,
+           field_cnt: int, record_cnt: int) -> tuple:
+    """The reference's slot arithmetic for batched (record, field)
+    queries: (slots (N,) int32, valid (N,) bool), slot = (r + 1) * jump +
+    f, with an invalid query's record and field taken as 0, so its slot
+    lies inside the index and its read is harmless."""
+    valid = ((records >= 0) & (records + 1 < record_cnt)
+             & (fields >= 0) & (fields < field_cnt))
+    r = torch.where(valid, records, 0)
+    f = torch.where(valid, fields, 0)
+    return (r + 1) * jump + f, valid
+
+
+def _masked_take(data: torch.Tensor, pos: torch.Tensor,
+                 keep: torch.Tensor) -> torch.Tensor:
+    """data[pos] where keep, 0 elsewhere: a window's bytes from one flat
+    uint8 tensor, pos clamped into it (in place)."""
+    return torch.where(keep, data[pos.clamp_(0, data.shape[0] - 1)], 0)
+
+
+def _byte_window(data, starts: torch.Tensor, ends: torch.Tensor,
+                 valid: torch.Tensor, max_len: int,
+                 take=_masked_take) -> tuple:
+    """The bytes of each query's field [start, end), at most max_len of
+    them: (out (N, max_len) uint8, zero past the field and for an invalid
+    query; TRUE lengths (N,) int32, 0 for an invalid query; valid).
+    `take(data, pos, keep)` reads the int32 flat positions `pos` where
+    `keep`, and may overwrite `pos`, which nothing reads after it; by
+    default `data` is the flat bytes on one device."""
+    lengths = torch.where(valid, ends - starts, 0)
+    pos = starts[:, None] + torch.arange(max_len, dtype=torch.int32,
+                                         device=starts.device)[None, :]
+    keep = (pos < ends[:, None]) & valid[:, None]
+    return take(data, pos, keep), lengths, valid
+
+
+def _field_bounds(index: torch.Tensor, records: torch.Tensor,
+                  fields: torch.Tensor, jump: int, field_cnt: int,
+                  record_cnt: int) -> tuple:
+    """(starts, ends, valid) of batched queries from an int32 index: start
+    = index[slot] + 1, end = index[slot + 1]. Index reads clamp to the
+    last entry, as the JAX gathers do, so an invalid query reads something
+    harmless and is masked out."""
+    slots, valid = _slots(records, fields, jump, field_cnt, record_cnt)
+    last = index.shape[0] - 1
+    starts = index[slots.clamp(max=last)] + 1
+    ends = index[(slots + 1).clamp(max=last)]
+    return starts, ends, valid
+
+
 def _gather_fields(data: torch.Tensor, index: torch.Tensor,
                    records: torch.Tensor, fields: torch.Tensor, jump: int,
                    field_cnt: int, record_cnt: int, max_len: int):
     """Batched (record, field) -> (bytes (N, max_len) uint8, TRUE lengths
     (N,) int32, valid (N,) bool) from the bytes and an int32 index on one
-    device. Index reads clamp to the last entry, as the JAX gathers do,
-    so an invalid query reads something harmless and is masked out."""
-    pos, keep, lengths, valid = _field_window(
-        index, records, fields, jump, field_cnt, record_cnt, max_len,
-        data.shape[0])
-    return torch.where(keep, data[pos], 0), lengths, valid
-
-
-def _field_window(index: torch.Tensor, records: torch.Tensor,
-                  fields: torch.Tensor, jump: int, field_cnt: int,
-                  record_cnt: int, max_len: int, n_bytes: int) -> tuple:
-    """The byte positions of a batched gather from an int32 index: (flat
-    positions (N, max_len) clamped to [0, n_bytes), the positions inside
-    a valid query's field, TRUE lengths (N,) int32, valid (N,) bool)."""
-    valid = ((records >= 0) & (records + 1 < record_cnt)
-             & (fields >= 0) & (fields < field_cnt))
-    r = torch.where(valid, records, 0)
-    f = torch.where(valid, fields, 0)
-    slots = (r + 1) * jump + f
-    last = index.shape[0] - 1
-    starts = index[slots.clamp(max=last)] + 1
-    ends = index[(slots + 1).clamp(max=last)]
-    lengths = torch.where(valid, ends - starts, 0)
-    pos = starts[:, None] + torch.arange(max_len, dtype=torch.int32,
-                                         device=index.device)[None, :]
-    keep = (pos < ends[:, None]) & valid[:, None]
-    return pos.clamp(0, n_bytes - 1), keep, lengths, valid
+    device."""
+    return _byte_window(data, *_field_bounds(index, records, fields, jump,
+                                             field_cnt, record_cnt), max_len)
 
 
 class TypedColumnsMixin:

@@ -1,96 +1,50 @@
 """ctypes bindings to the native host engine (csvidx.cpp), the port's copy
 of csv_simd_tpu/native.
 
-Built at first use with g++ (no pip deps) into the package's git-ignored
-`_build/` directory, under a name keyed by a hash of the source and the
-flags, so an edited source is rebuilt and nothing is written beside the
-source. All entry points degrade gracefully: `available()` is False if
-no compiler, and callers fall back to the NumPy paths.
+Built at first use with g++ (no pip deps) through `_compiled` into the
+package's git-ignored `_build/` directory, under a name keyed by a hash
+of the source and the flags, so an edited source is rebuilt and nothing
+is written beside the source. All entry points degrade gracefully:
+`available()` is False if no compiler, and callers fall back to the
+NumPy paths.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
-import threading
+import pathlib
 from typing import Optional, Tuple
 
 import numpy as np
+from .. import _compiled
 from ..utils import as_u8
 
-_DIR = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_DIR, "csvidx.cpp")
-_BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
-_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-          "-pthread")
+_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread")
+LIB = _compiled.Library("csvidx", pathlib.Path(__file__).resolve().parent,
+                        "csvidx.cpp", "g++", _FLAGS)
+i64, i32, vp = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
 _build_error: Optional[str] = None
 
 
 def library_path() -> str:
     """Where the engine is built: _build/csvidx-<hash of source and
     flags>.so."""
-    h = hashlib.sha256()
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(_FLAGS).encode())
-    return os.path.join(_BUILD_DIR, f"csvidx-{h.hexdigest()[:16]}.so")
-
-
-def _build(so: str) -> Optional[str]:
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    # compile to a private name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = ["g++", *_FLAGS, _SRC, "-o", tmp]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        os.unlink(tmp)
-        return f"g++ invocation failed: {e}"
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        return f"g++ failed: {proc.stderr[-2000:]}"
-    os.replace(tmp, so)
-    return None
+    return str(LIB.path())
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _build_error
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if _build_error is not None:
-            return None
-        so = library_path()
-        if not os.path.exists(so):
-            _build_error = _build(so)
-            if _build_error is not None:
-                return None
-        lib = ctypes.CDLL(so)
-        lib.host_stage1.restype = ctypes.c_int64
-        lib.host_stage1.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int),
-        ]
-        lib.host_quote_parity.restype = ctypes.c_int
-        lib.host_quote_parity.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ]
-        lib.extract_offsets_v3.restype = ctypes.c_int64
-        lib.extract_offsets_v3.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        _lib = lib
-        return _lib
+    """The engine, built at first use; None (and `build_error()` says
+    why) when g++ is missing or refuses the source."""
+    global _build_error
+    if _build_error is not None:
+        return None
+    try:
+        return LIB.handle()
+    except _compiled.BuildError as e:
+        _build_error = str(e)
+        return None
 
 
 def available() -> bool:
@@ -100,6 +54,15 @@ def available() -> bool:
 def build_error() -> Optional[str]:
     _load()
     return _build_error
+
+
+def _engine() -> None:
+    if _load() is None:
+        raise RuntimeError(f"native engine unavailable: {_build_error}")
+
+
+_host_stage1 = LIB.fn("host_stage1", [vp, i64, i32, i32, i32, i32, i32, i32,
+                                      vp, i64, ctypes.POINTER(i32)], i64)
 
 
 def host_stage1(
@@ -116,9 +79,7 @@ def host_stage1(
     Multithreaded two-phase parity stitch."""
     from ..config import DEFAULT_DIALECT
 
-    lib = _load()
-    if lib is None:
-        raise RuntimeError(f"native engine unavailable: {_build_error}")
+    _engine()
     d = dialect or DEFAULT_DIALECT
     nl0 = d.newlines[0]
     nl1 = d.newlines[1] if len(d.newlines) > 1 else d.newlines[0]
@@ -134,7 +95,7 @@ def host_stage1(
         if lead:
             out[0] = 0
         parity = ctypes.c_int(0)
-        cnt = lib.host_stage1(
+        cnt = _host_stage1(
             arr.ctypes.data, arr.size, d.delimiter, d.quote, nl0, nl1,
             carry_in & 1, n_threads, out.ctypes.data + 8 * lead, cap,
             ctypes.byref(parity),
@@ -144,13 +105,18 @@ def host_stage1(
         cap = min(cap * 4, arr.size + 1)
 
 
+_host_quote_parity = LIB.fn("host_quote_parity", [vp, i64, i32, i32])
+
+
 def host_quote_parity(data: bytes | np.ndarray, quote: int = 0x22,
                       carry_in: int = 0) -> int:
-    lib = _load()
-    if lib is None:
-        raise RuntimeError(f"native engine unavailable: {_build_error}")
+    _engine()
     arr = as_u8(data)
-    return lib.host_quote_parity(arr.ctypes.data, arr.size, quote, carry_in)
+    return _host_quote_parity(arr.ctypes.data, arr.size, quote, carry_in)
+
+
+_extract_offsets_v3 = LIB.fn("extract_offsets_v3",
+                             [vp, i64, i64, i64, i64, i64, vp], i64)
 
 
 def extract_offsets_v3(
@@ -158,13 +124,11 @@ def extract_offsets_v3(
 ) -> np.ndarray:
     """Decode the device kernel's fold-packed words straight to ascending
     absolute offsets (no byte-mask intermediate)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError(f"native engine unavailable: {_build_error}")
+    _engine()
     p = np.ascontiguousarray(packed, dtype=np.int32)
     cap = int(min(n_bytes, p.size * 32)) + 1
     out = np.empty(cap, dtype=np.int64)
-    cnt = lib.extract_offsets_v3(
+    cnt = _extract_offsets_v3(
         p.ctypes.data, p.shape[0], tile, n_bytes, base, cap,
         out.ctypes.data,
     )

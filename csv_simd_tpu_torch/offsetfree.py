@@ -22,7 +22,7 @@ import torch
 from .artifact import _fingerprint
 from .config import DEFAULT_DIALECT, Dialect
 from .device import resolve_device
-from .device_tape import TypedColumnsMixin, as_int32
+from .device_tape import TypedColumnsMixin, _byte_window, _slots, as_int32
 from .errors import InvalidCsvFormat
 from .ops.stage1_v2 import ROW_BYTES, padded_rows
 from .ops.stage1_v4 import stage1_fused_v4
@@ -131,24 +131,12 @@ def _serve(data, words2d, cum_incl, records, fields, jump: int,
            field_cnt: int, record_cnt: int, max_len: int):
     GLOBAL.count("offsetfree.lookups", records.shape[0])
     with GLOBAL.span("offsetfree.serve"):
-        valid = ((records >= 0) & (records + 1 < record_cnt)
-                 & (fields >= 0) & (fields < field_cnt))
-        r = torch.where(valid, records, 0)
-        f = torch.where(valid, fields, 0)
-        slots = (r + 1) * jump + f  # >= 1 for all valid queries
+        slots, valid = _slots(records, fields, jump, field_cnt, record_cnt)
         ks = torch.cat([slots - 1, slots])  # start bit, end bit
         with GLOBAL.span("offsetfree.rank_select"):
             pos = _kth_positions(words2d, cum_incl, ks)
         n = slots.shape[0]
-        starts = pos[:n] + 1
-        ends = pos[n:]
-        lengths = torch.where(valid, ends - starts, 0)
-        grid = starts[:, None] + torch.arange(max_len, dtype=torch.int32,
-                                              device=data.device)[None, :]
-        in_range = grid < ends[:, None]
-        grid = grid.clamp(0, data.shape[0] - 1)
-        out = torch.where(in_range & valid[:, None], data[grid], 0)
-        return out, lengths, valid
+        return _byte_window(data, pos[:n] + 1, pos[n:], valid, max_len)
 
 
 def packed_seq_meta(header, n_bytes: int, fingerprint: str) -> dict:

@@ -28,7 +28,14 @@ import json
 import numpy as np
 import torch
 
-from ..device_tape import TypedColumnsMixin, _field_window, _host, as_int32
+from ..device_tape import (
+    TypedColumnsMixin,
+    _byte_window,
+    _field_bounds,
+    _host,
+    _slots,
+    as_int32,
+)
 from ..utils import as_u8
 from .sharded import (
     Mesh,
@@ -105,15 +112,22 @@ class ShardedTape(TypedColumnsMixin):
     def gather_fields(self, records, fields, max_len: int = 64):
         """Batched (record, field) -> (bytes (N, max_len) uint8, TRUE
         lengths (N,) int32, valid (N,) bool), on the first device."""
-        pos, keep, lengths, valid = _field_window(
+        starts, ends, valid = _field_bounds(
             self.index, as_int32(records, self.device),
             as_int32(fields, self.device), self.jump, self.field_cnt,
-            self.record_cnt, max_len, self.shard_len * self.mesh.size)
+            self.record_cnt)
+        return _byte_window(self.data, starts, ends, valid, max_len,
+                            take=self._take)
+
+    def _take(self, shards: list, pos: torch.Tensor,
+              keep: torch.Tensor) -> torch.Tensor:
+        """The byte window's read: flat positions, clamped into the padded
+        bytes, read from the shard that holds each; `pos` becomes the
+        shard-local positions in place."""
+        pos.clamp_(0, self.shard_len * self.mesh.size - 1)
         owner = pos // self.shard_len
-        local = pos - owner * self.shard_len
-        del pos
-        return (_sharded_take(self.data, owner, local, keep), lengths,
-                valid)
+        local = pos.sub_(owner * self.shard_len)
+        return _sharded_take(shards, owner, local, keep)
 
 
 def _serve_packed_sharded(data: list, words: list, cum: torch.Tensor,
@@ -129,11 +143,7 @@ def _serve_packed_sharded(data: list, words: list, cum: torch.Tensor,
     16 words and each byte come from the owning shard."""
     from ..offsetfree import _bit_in_row, _row_and_rank
 
-    valid = ((records >= 0) & (records + 1 < record_cnt)
-             & (fields >= 0) & (fields < field_cnt))
-    r = torch.where(valid, records, 0)
-    f = torch.where(valid, fields, 0)
-    slots = (r + 1) * jump + f
+    slots, valid = _slots(records, fields, jump, field_cnt, record_cnt)
     ks = torch.cat([slots - 1, slots])  # start bit, end bit
     row, j = _row_and_rank(cum, ks)
     owner = row // shard_rows

@@ -23,6 +23,13 @@ rebuilt on the card's own kernels, with the JAX tools' names.
         the lane-window sum (laneload) and the same pack product (mmLb)
         on the (rows/8, 1024) view
 
+The probes' CUDA kernels live here, in `tools/csrc/probe_*.cu`, and build
+into their own library through `tools/_lab_kernels` (its wrappers, check
+helpers, mode tables and LAUNCHES), apart from the product's kernels in
+`csrc/`: the package never imports this directory, so building a tape
+never compiles a probe. The card tests import the wrappers as
+`from csv_simd_tpu_torch.tools import _lab_kernels`.
+
 Each runs on one NVIDIA card (and exits 2 without one), holds its kernel
 against the plain PyTorch version first, exits non-zero on any mismatch,
 and prints one JSON line of results, with the card's name and power

@@ -36,7 +36,6 @@ import sys
 
 import torch
 
-from .._kernels import check_rows128
 from ..config import DEFAULT_DIALECT
 from ..ops.stage1_v3 import _as_carry, _fold_from_seq_plain
 from ..ops.stage1_v4 import _stage1_v4_plain
@@ -60,6 +59,7 @@ from ._common import (
     wrap_sum,
     xor_reduce,
 )
+from ._lab_kernels import check_rows128
 
 L = 128
 SIZES = (64 << 20, 1 << 30)
@@ -184,9 +184,9 @@ def mk(words: torch.Tensor, mode: str, tile: int = 512, carry_in=0):
         raise ValueError(f"tile {tile} must be a positive multiple of 8 "
                          f"that divides the {rows} rows")
     if words.device.type == "cuda":
-        from .. import _kernels
+        from . import _lab_kernels
 
-        return _kernels.probe_ablate(words, mode, tile, carry_in)
+        return _lab_kernels.probe_ablate(words, mode, tile, carry_in)
     if words.device.type != "cpu":
         raise ValueError(f"unsupported device {words.device}")
     return _ablate_plain(words, mode, tile, carry_in)

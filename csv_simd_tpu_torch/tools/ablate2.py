@@ -36,7 +36,6 @@ import sys
 
 import torch
 
-from .._kernels import check_rows128
 from ..config import DEFAULT_DIALECT
 from ..ops.stage1_v3 import (
     _as_carry,
@@ -63,6 +62,7 @@ from ._common import (
     random_words,
     xor_reduce,
 )
+from ._lab_kernels import check_rows128
 
 L = 128
 WORDS = 16
@@ -198,9 +198,9 @@ def mk(words: torch.Tensor, mode: str, tile: int = 512, carry_in=0):
         return _package(words, mode, tile, _as_carry(carry_in, words.device),
                         plain=False)
     if words.device.type == "cuda":
-        from .. import _kernels
+        from . import _lab_kernels
 
-        return _kernels.probe_ablate2(words, mode, tile, carry_in)
+        return _lab_kernels.probe_ablate2(words, mode, tile, carry_in)
     return _micro_plain(words, mode, tile, carry_in)
 
 

@@ -31,8 +31,6 @@ import sys
 
 import torch
 
-from .._kernels import STREAM_WRITE_MODES as WRITE_MODES
-from .._kernels import check_rows128
 from ..ops.stage1_v3 import _as_carry
 from ._common import (
     card,
@@ -46,6 +44,8 @@ from ._common import (
     wrap_sum,
     xor_reduce,
 )
+from ._lab_kernels import STREAM_WRITE_MODES as WRITE_MODES
+from ._lab_kernels import check_rows128
 
 DMA_PROBE_MODES = ("narrow", "wide")  # tools/dma_probe.py's two
 BLOCK = 512
@@ -78,9 +78,9 @@ def mk_write(words: torch.Tensor, mode: str, carry_in=0):
     if mode not in WRITE_MODES:
         raise ValueError(f"mode must be one of {WRITE_MODES}: {mode!r}")
     if words.device.type == "cuda":
-        from .. import _kernels
+        from . import _lab_kernels
 
-        return _kernels.probe_stream_write(words, mode, carry_in)
+        return _lab_kernels.probe_stream_write(words, mode, carry_in)
     if words.device.type != "cpu":
         raise ValueError(f"unsupported device {words.device}")
     return _write_plain(words, mode, carry_in)
@@ -91,9 +91,9 @@ def mk_read(words: torch.Tensor, carry_in=0):
     last (64, 128) block plus the carry bit, side (R/64,) int32)."""
     check_rows128(words, "mk_read", READ_BLOCK)
     if words.device.type == "cuda":
-        from .. import _kernels
+        from . import _lab_kernels
 
-        return _kernels.probe_stream_read(words, carry_in)
+        return _lab_kernels.probe_stream_read(words, carry_in)
     if words.device.type != "cpu":
         raise ValueError(f"unsupported device {words.device}")
     return _read_plain(words, carry_in)

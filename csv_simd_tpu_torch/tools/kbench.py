@@ -106,9 +106,9 @@ def make_variant(b2d: torch.Tensor, name: str, tile: int = 1024,
         words, count, _par = stage1_pallas(b2d, carry_in, row_tile=tile)
         return words, count
     if b2d.device.type == "cuda":
-        from .. import _kernels
+        from . import _lab_kernels
 
-        return _kernels.probe_kbench(b2d, _CUT[name], tile, carry_in)
+        return _lab_kernels.probe_kbench(b2d, _CUT[name], tile, carry_in)
     return _variant_plain(b2d, name, tile, carry_in)
 
 

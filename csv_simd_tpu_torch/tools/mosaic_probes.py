@@ -45,7 +45,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._kernels import check_rows
 from ._common import (
     card,
     check_all,
@@ -56,6 +55,7 @@ from ._common import (
     need_card,
     wrap_sum,
 )
+from ._lab_kernels import check_rows
 
 T, L = 8, 128
 GATE_ROWS = (8, 56, 512, 520, 8000)
@@ -113,9 +113,9 @@ def _run(name: str, *args: torch.Tensor) -> torch.Tensor:
     if any(a.device != dev for a in args):
         raise ValueError(f"{name}: inputs on {[str(a.device) for a in args]}")
     if dev.type == "cuda":
-        from .. import _kernels
+        from . import _lab_kernels
 
-        return getattr(_kernels, LAUNCH_COUNTER[name])(*args)
+        return getattr(_lab_kernels, LAUNCH_COUNTER[name])(*args)
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return PLAIN[name](*args)

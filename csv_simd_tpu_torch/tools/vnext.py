@@ -38,7 +38,6 @@ import sys
 import numpy as np
 import torch
 
-from .._kernels import check_rows128
 from ..config import DEFAULT_DIALECT
 from ..ops.stage1_v3 import (
     _as_carry,
@@ -59,6 +58,7 @@ from ._common import (
     need_card,
     random_words,
 )
+from ._lab_kernels import check_rows128
 
 L = 128
 SIZES = (64 << 20, 1 << 30)
@@ -107,9 +107,9 @@ def make(words: torch.Tensor, tile: int = 512, carry_in=0,
     _check(words, tile)
     if words.device.type == "cuda":
         if directpack:
-            from .. import _kernels
+            from . import _lab_kernels
 
-            return _kernels.probe_vnext(words, tile, carry_in)
+            return _lab_kernels.probe_vnext(words, tile, carry_in)
         return stage1_fused(words, carry_in, row_tile=tile)
     if words.device.type != "cpu":
         raise ValueError(f"unsupported device {words.device}")

@@ -27,7 +27,6 @@ import sys
 import numpy as np
 import torch
 
-from .._kernels import check_rows128
 from ..ops.swar import shift_right_logical
 from ._common import (
     card,
@@ -39,6 +38,7 @@ from ._common import (
     need_card,
     random_words,
 )
+from ._lab_kernels import check_rows128
 
 TILE = 512
 _CONSTS = np.random.default_rng(11).integers(1, 2**31 - 1,
@@ -85,10 +85,10 @@ def probe(words: torch.Tensor, n_ops: int, mix: str, s=0) -> torch.Tensor:
     if n_ops <= 0 or n_ops % 4:
         raise ValueError(f"n_ops must be a positive multiple of 4: {n_ops}")
     if words.device.type == "cuda":
-        from .. import _kernels
+        from . import _lab_kernels
 
-        return _kernels.probe_alu(words, n_ops, list(MIXES).index(mix),
-                                  _CONSTS, s)
+        return _lab_kernels.probe_alu(words, n_ops, list(MIXES).index(mix),
+                                      _CONSTS, s)
     if words.device.type != "cpu":
         raise ValueError(f"unsupported device {words.device}")
     return _probe_plain(words, n_ops, mix, s)
@@ -97,12 +97,12 @@ def probe(words: torch.Tensor, n_ops: int, mix: str, s=0) -> torch.Tensor:
 def check(words: torch.Tensor, s=1) -> dict:
     """Every built op count and mix against the plain version on words:
     {checks, max_abs_err}."""
-    from .. import _kernels
+    from . import _lab_kernels
 
     return check_all(
         (probe(words, n_ops, mix, s), _probe_plain(words, n_ops, mix, s),
          f"{mix} {n_ops} ops rows={words.shape[0]}")
-        for n_ops in _kernels.probe_alu_op_counts() for mix in MIXES)
+        for n_ops in _lab_kernels.probe_alu_op_counts() for mix in MIXES)
 
 
 def gate(device) -> dict:
@@ -122,9 +122,9 @@ def run(words: torch.Tensor, reps: int = 20) -> dict:
     """Times of every built op count per mix, in turns, and the rate
     between the two largest counts: {mix: {"ms": {ops: ms}, "eager_ms":
     {ops: ms}, "ops": [lo, hi], "t_ops_per_s": rate / 1e12}}."""
-    from .. import _kernels
+    from . import _lab_kernels
 
-    counts = _kernels.probe_alu_op_counts()
+    counts = _lab_kernels.probe_alu_op_counts()
     lo, hi = counts[-2], counts[-1]
     fns = {(mix, n): (lambda mix=mix, n=n: probe(words, n, mix, 1))
            for mix in MIXES for n in counts}

@@ -33,7 +33,6 @@ import sys
 import numpy as np
 import torch
 
-from .._kernels import check_pack_weights, check_rows128, check_wide
 from ._common import (
     card,
     check_all,
@@ -44,6 +43,7 @@ from ._common import (
     random_words,
     report_probes,
 )
+from ._lab_kernels import check_pack_weights, check_rows128, check_wide
 
 T = 512       # the TPU probe's input rows
 LANES = 128
@@ -73,9 +73,9 @@ def s8_st16(x: torch.Tensor) -> torch.Tensor:
     module docstring."""
     check_rows128(x, "s8_st16", 8)
     if x.device.type == "cuda":
-        from .. import _kernels
+        from . import _lab_kernels
 
-        return _kernels.probe_ws_gather(x)
+        return _lab_kernels.probe_ws_gather(x)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return _gather_plain(x)
@@ -87,9 +87,9 @@ def packmm(xw: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     check_wide(xw, "packmm")
     check_pack_weights(w, xw, "packmm")
     if xw.device.type == "cuda":
-        from .. import _kernels
+        from . import _lab_kernels
 
-        return _kernels.probe_ws_packmm(xw, w)
+        return _lab_kernels.probe_ws_packmm(xw, w)
     if xw.device.type != "cpu":
         raise ValueError(f"unsupported device {xw.device}")
     return _packmm_plain(xw, w)

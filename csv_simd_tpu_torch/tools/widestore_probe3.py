@@ -30,7 +30,6 @@ import sys
 import numpy as np
 import torch
 
-from .._kernels import check_wide
 from ._common import (
     card,
     check_all,
@@ -42,6 +41,7 @@ from ._common import (
     report_probes,
     wrap_sum,
 )
+from ._lab_kernels import check_wide
 from .widestore_probe2 import (
     GATE_ROWS,
     LANES,
@@ -61,9 +61,9 @@ def laneload(x: torch.Tensor) -> torch.Tensor:
     """(M, 1024) int32 -> (M, 128) int32: see the module docstring."""
     check_wide(x, "laneload")
     if x.device.type == "cuda":
-        from .. import _kernels
+        from . import _lab_kernels
 
-        return _kernels.probe_ws_lanesum(x)
+        return _lab_kernels.probe_ws_lanesum(x)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return _lanesum_plain(x)

@@ -26,7 +26,6 @@ import sys
 import numpy as np
 import torch
 
-from .._kernels import check_pack_weights, check_wide
 from ._common import (
     card,
     check_all,
@@ -38,6 +37,7 @@ from ._common import (
     random_words,
     report_probes,
 )
+from ._lab_kernels import check_pack_weights, check_wide
 from .widestore_probe2 import GATE_ROWS, LANES, random_weights
 
 T8 = 64       # the TPU probe's input rows
@@ -63,9 +63,9 @@ def concat_mm(xw: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     check_wide(xw, "concat_mm")
     check_pack_weights(w, xw, "concat_mm")
     if xw.device.type == "cuda":
-        from .. import _kernels
+        from . import _lab_kernels
 
-        return _kernels.probe_concat_mm(xw, w)
+        return _lab_kernels.probe_concat_mm(xw, w)
     if xw.device.type != "cpu":
         raise ValueError(f"unsupported device {xw.device}")
     return _concat_mm_plain(xw, w)

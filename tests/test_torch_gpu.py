@@ -31,6 +31,7 @@ from csv_simd_tpu_torch.ops.stage1_v3 import (
     unpack_packed_host,
 )
 from csv_simd_tpu_torch.ops.stage1_v4 import _stage1_v4_plain, stage1_fused_v4
+from csv_simd_tpu_torch.tools import _lab_kernels as lab
 
 from corpus import all_cases, synthetic_wide_table
 from rank_select_cases import CASES, RANKS, ranks, words_for
@@ -230,6 +231,12 @@ def _same(got, want) -> None:
     for g, w in zip(got, want):
         assert torch.equal(torch.as_tensor(g).reshape(-1).cpu(),
                            torch.as_tensor(w).reshape(-1).cpu())
+
+
+def _launches() -> dict:
+    """The launch counts of the product's kernels and the lab's probes,
+    together: some probes run the product's B1 and relayouts inside."""
+    return {**_kernels.launch_counts(), **lab.launch_counts()}
 
 
 @pytest.mark.gpu
@@ -446,7 +453,7 @@ def test_alu_probe_matches_plain(cuda_device):
     # 32,768 rows: past one pass of the kernel's grid-stride loop
     for rows in (1024, 32_768):
         w = random_words(rows, cuda_device, 9)
-        for n_ops in _kernels.probe_alu_op_counts():
+        for n_ops in lab.probe_alu_op_counts():
             for mix in vpu_roofline.MIXES:
                 for s in (0, -5, torch.tensor(77, dtype=torch.int32,
                                               device=cuda_device)):
@@ -476,13 +483,13 @@ def test_ablate_probe_matches_plain(cuda_device, rows, tile):
 def test_probe_kernels_reject_bad_input(cuda_device):
     w = torch.zeros((1024, 128), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
-        _kernels.probe_stream_write(w[:1000], "narrow", 0)
+        lab.probe_stream_write(w[:1000], "narrow", 0)
     with pytest.raises(ValueError):
-        _kernels.probe_stream_read(w.cpu(), 0)
+        lab.probe_stream_read(w.cpu(), 0)
     with pytest.raises(ValueError):
-        _kernels.probe_alu(w, 17, 0, [1] * 256, 0)
+        lab.probe_alu(w, 17, 0, [1] * 256, 0)
     with pytest.raises(ValueError):
-        _kernels.probe_ablate(w, "full", 12, 0)
+        lab.probe_ablate(w, "full", 12, 0)
     with pytest.raises(ValueError):
         _kernels.stage1_v4(w.view(-1)[:8], 0, Dialect(), True,
                            emit_counts=True)
@@ -501,11 +508,11 @@ def test_ablate2_probe_matches_plain(cuda_device, rows, tile):
               csv_words(rows, cuda_device, tile)):
         for carry in (0, 1, torch.ones((), dtype=torch.int32,
                                        device=cuda_device)):
-            before = _kernels.launch_counts()["probe_ablate2"]
+            before = _launches()["probe_ablate2"]
             for mode in ablate2.MICRO:
                 _same(ablate2.mk(w, mode, tile, carry),
                       ablate2.plain(w, mode, tile, carry))
-            assert _kernels.launch_counts()["probe_ablate2"] == \
+            assert _launches()["probe_ablate2"] == \
                 before + len(ablate2.MICRO)
             _same((ablate2.mk(w, "v4full", tile, carry)[0],),
                   (stage1_fused_v4(w, carry)[0],))
@@ -548,9 +555,9 @@ def test_vnext_direct_pack_matches_b3(cuda_device, rows, tile):
     w = w.to(cuda_device)
     for carry in (0, 1, torch.ones((), dtype=torch.int32,
                                    device=cuda_device)):
-        before = _kernels.launch_counts()["probe_vnext"]
+        before = _launches()["probe_vnext"]
         got = vnext.make(w, tile, carry, directpack=True)
-        assert _kernels.launch_counts()["probe_vnext"] == before + 1
+        assert _launches()["probe_vnext"] == before + 1
         _same(got, vnext._vnext_plain(w, tile, carry, True))
         _same(got, stage1_fused(w, carry, row_tile=tile))
         mask = unpack_packed_host(got[0].cpu().numpy(), arr.size, tile)
@@ -562,21 +569,21 @@ def test_vnext_direct_pack_matches_b3(cuda_device, rows, tile):
 def test_lab_kernels_reject_bad_input(cuda_device):
     w = torch.zeros((1024, 128), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
-        _kernels.probe_ablate2(w, "pack3", 8, 0)
+        lab.probe_ablate2(w, "pack3", 8, 0)
     with pytest.raises(ValueError):
-        _kernels.probe_ablate2(w, "lane", 12, 0)
+        lab.probe_ablate2(w, "lane", 12, 0)
     with pytest.raises(ValueError):
-        _kernels.probe_kbench(w, "full", 64, 0)
+        lab.probe_kbench(w, "full", 64, 0)
     with pytest.raises(ValueError):
-        _kernels.probe_kbench(w.to(torch.uint8), "full", 48, 0)
+        lab.probe_kbench(w.to(torch.uint8), "full", 48, 0)
     # no tile limit: any multiple of 8 that divides the rows
     with pytest.raises(ValueError):
-        _kernels.probe_vnext(w, 1000, 0)
+        lab.probe_vnext(w, 1000, 0)
     with pytest.raises(ValueError):
-        _kernels.probe_vnext(w, 12, 0)
+        lab.probe_vnext(w, 12, 0)
     with pytest.raises(ValueError):
-        _kernels.probe_vnext(w[:1000], 64, 0)
-    _same(_kernels.probe_vnext(w, 1024, 0), stage1_fused(w, 0,
+        lab.probe_vnext(w[:1000], 64, 0)
+    _same(lab.probe_vnext(w, 1024, 0), stage1_fused(w, 0,
                                                          row_tile=1024))
 
 
@@ -593,14 +600,14 @@ def test_widestore_kernels_match_plain(cuda_device, m):
 
     x = random_words(8 * m, cuda_device, m)
     wide = x.view(-1, 1024)
-    before = _kernels.launch_counts()
+    before = _launches()
     _same((ws2.s8_st16(x), ws3.laneload(wide)),
           (ws2._gather_plain(x), ws3._lanesum_plain(wide)))
     weights = ws2.weight_sets(cuda_device)
     for w in weights.values():
         _same((ws2.mm_lanes(x, w), ws3.mm_lanes_b(wide, w)),
               (ws2._packmm_plain(wide, w),) * 2)
-    after = _kernels.launch_counts()
+    after = _launches()
     assert after["probe_ws_gather"] == before["probe_ws_gather"] + 1
     assert after["probe_ws_lanesum"] == before["probe_ws_lanesum"] + 1
     assert after["probe_ws_packmm"] == \
@@ -612,10 +619,10 @@ def test_widestore_tpu_probes_bit_exact_on_card(cuda_device):
     from csv_simd_tpu_torch.tools import widestore_probe2 as ws2
     from csv_simd_tpu_torch.tools import widestore_probe3 as ws3
 
-    before = _kernels.launch_counts()
+    before = _launches()
     for _name, probe in ws2.PROBES + ws3.PROBES:
         assert probe(cuda_device)
-    after = _kernels.launch_counts()
+    after = _launches()
     for kernel, n in (("probe_ws_gather", 1), ("probe_ws_lanesum", 1),
                       ("probe_ws_packmm", 2)):
         assert after[kernel] == before[kernel] + n
@@ -626,17 +633,17 @@ def test_widestore_kernels_reject_bad_input(cuda_device):
     x = torch.zeros((64, 1024), dtype=torch.int32, device=cuda_device)
     w = torch.zeros((1024, 128), dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError):
-        _kernels.probe_ws_gather(x.view(-1, 128)[:100])
+        lab.probe_ws_gather(x.view(-1, 128)[:100])
     with pytest.raises(ValueError):
-        _kernels.probe_ws_lanesum(x[:, :512])
+        lab.probe_ws_lanesum(x[:, :512])
     with pytest.raises(ValueError):
-        _kernels.probe_ws_packmm(x.cpu(), w)
+        lab.probe_ws_packmm(x.cpu(), w)
     with pytest.raises(ValueError):
-        _kernels.probe_ws_packmm(x, w.to(torch.uint8))
+        lab.probe_ws_packmm(x, w.to(torch.uint8))
     with pytest.raises(ValueError):
-        _kernels.probe_ws_packmm(x, w[:512])
+        lab.probe_ws_packmm(x, w[:512])
     with pytest.raises(ValueError):
-        _kernels.probe_ws_packmm(x, w.t())
+        lab.probe_ws_packmm(x, w.t())
 
 
 @pytest.mark.gpu
@@ -671,11 +678,11 @@ def test_mosaic_kernels_match_plain(cuda_device, rows):
     from csv_simd_tpu_torch.tools import mosaic_probes as mp
 
     cases = mp._cases(rows, cuda_device, rows)
-    before = _kernels.launch_counts()
+    before = _launches()
     for kernel, runs in cases.items():
         for args, _what in runs:
             _same((mp.FUNCTIONS[kernel](*args),), (mp.PLAIN[kernel](*args),))
-    after = _kernels.launch_counts()
+    after = _launches()
     for kernel, runs in cases.items():
         counter = mp.LAUNCH_COUNTER[kernel]
         assert after[counter] == before[counter] + len(runs)
@@ -688,9 +695,9 @@ def test_mosaic_tpu_probes_fixed_on_card(cuda_device):
     mm1 probe's bytes against golden."""
     from csv_simd_tpu_torch.tools import mosaic_probes as mp
 
-    before = _kernels.launch_counts()
+    before = _launches()
     assert set(mp.report(cuda_device).values()) == {"fixed"}
-    after = _kernels.launch_counts()
+    after = _launches()
     for kernel, n in (("probe_mosaic_mm32", 2), ("probe_mosaic_gather", 1),
                       ("probe_mosaic_cmp8", 1), ("probe_mosaic_select8", 1),
                       ("probe_mosaic_shift_add", 1),
@@ -708,10 +715,10 @@ def test_concat_mm_kernel_matches_plain(cuda_device, m):
 
     x = random_words(8 * m, cuda_device, 7 * m).view(-1, 1024)
     weights = ws4.weight_sets(cuda_device)
-    before = _kernels.launch_counts()["probe_concat_mm"]
+    before = _launches()["probe_concat_mm"]
     for w in weights.values():
         _same((ws4.concat_mm(x, w),), (ws4._concat_mm_plain(x, w),))
-    assert _kernels.launch_counts()["probe_concat_mm"] == \
+    assert _launches()["probe_concat_mm"] == \
         before + len(weights)
 
 
@@ -719,9 +726,9 @@ def test_concat_mm_kernel_matches_plain(cuda_device, m):
 def test_concat_mm_tpu_probe_bit_exact_on_card(cuda_device):
     from csv_simd_tpu_torch.tools import widestore_probe4 as ws4
 
-    before = _kernels.launch_counts()["probe_concat_mm"]
+    before = _launches()["probe_concat_mm"]
     assert ws4.probe_concat_mm(cuda_device)
-    assert _kernels.launch_counts()["probe_concat_mm"] == before + 1
+    assert _launches()["probe_concat_mm"] == before + 1
 
 
 @pytest.mark.gpu
@@ -731,25 +738,25 @@ def test_mosaic_and_concat_kernels_reject_bad_input(cuda_device):
     v = x.view(-1, 128)
     a = torch.zeros((64, 128), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):
-        _kernels.probe_mosaic_mm32(v[:, :64])
+        lab.probe_mosaic_mm32(v[:, :64])
     with pytest.raises(ValueError):
-        _kernels.probe_mosaic_mm32(v.cpu())
+        lab.probe_mosaic_mm32(v.cpu())
     with pytest.raises(ValueError):
-        _kernels.probe_mosaic_cmp8(v)
+        lab.probe_mosaic_cmp8(v)
     with pytest.raises(ValueError):
-        _kernels.probe_mosaic_select8(a.to(torch.int8))
+        lab.probe_mosaic_select8(a.to(torch.int8))
     with pytest.raises(ValueError):
-        _kernels.probe_mosaic_gather(a.to(torch.int8), v[:32])
+        lab.probe_mosaic_gather(a.to(torch.int8), v[:32])
     with pytest.raises(ValueError):
-        _kernels.probe_mosaic_shift_add(v[:0])
+        lab.probe_mosaic_shift_add(v[:0])
     with pytest.raises(ValueError):
-        _kernels.probe_mosaic_usum(v.to(torch.int64))
+        lab.probe_mosaic_usum(v.to(torch.int64))
     with pytest.raises(ValueError):
-        _kernels.probe_concat_mm(x, w.to(torch.uint8))
+        lab.probe_concat_mm(x, w.to(torch.uint8))
     with pytest.raises(ValueError):
-        _kernels.probe_concat_mm(x[:, :512], w)
+        lab.probe_concat_mm(x[:, :512], w)
     with pytest.raises(ValueError):
-        _kernels.probe_concat_mm(x, w.t())
+        lab.probe_concat_mm(x, w.t())
 
 
 @pytest.mark.gpu
@@ -879,13 +886,13 @@ def test_int8_products_on_tile_edges(cuda_device, m):
                "min": torch.full((1024, 128), -128, dtype=torch.int8,
                                  device=cuda_device),
                "overlap": ws2.overlap_weights(cuda_device)}
-    before = _kernels.launch_counts()
+    before = _launches()
     for w in weights.values():
         want = ws2._packmm_plain(wide, w)
         _same((ws2.mm_lanes(x, w), ws3.mm_lanes_b(wide, w)), (want, want))
     for w in ws4.weight_sets(cuda_device).values():
         _same((ws4.concat_mm(wide, w),), (ws4._concat_mm_plain(wide, w),))
-    after = _kernels.launch_counts()
+    after = _launches()
     assert after["probe_ws_packmm"] == \
         before["probe_ws_packmm"] + 2 * len(weights)
     assert after["probe_concat_mm"] == before["probe_concat_mm"] + 3
@@ -1008,9 +1015,9 @@ def test_ablate_modes_launch_their_routes(cuda_device, tile, chunks):
     w = w.to(cuda_device)
     one = torch.ones((), dtype=torch.int32, device=cuda_device)
     for mode in ablate.MODES:
-        before = _kernels.launch_counts()
+        before = _launches()
         got = ablate.mk(w, mode, tile, one)
-        after = _kernels.launch_counts()
+        after = _launches()
         assert {k: after[k] - before[k] for k in after
                 if after[k] != before[k]} == {"probe_ablate": 1}, mode
         _same(got, ablate._ablate_plain(w, mode, tile, one))
@@ -1026,9 +1033,9 @@ def test_vnext_routes_and_launches(cuda_device, tile):
     arr = _quoted_span(64, 3 * tile)
     w = torch.from_numpy(arr.view("<i4").reshape(-1, 128).copy())
     w = w.to(cuda_device)
-    before = _kernels.launch_counts()
+    before = _launches()
     got = vnext.make(w, tile, 1, directpack=True)
-    after = _kernels.launch_counts()
+    after = _launches()
     assert {k: after[k] - before[k] for k in after
             if after[k] != before[k]} == {"probe_vnext": 1}
     _same(got, stage1_fused(w, 1, row_tile=tile))

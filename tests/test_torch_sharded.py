@@ -274,16 +274,20 @@ def test_jax_mesh_has_the_shards():
 
 def test_kernel_build_hash_covers_the_shard_parity_source(tmp_path,
                                                          monkeypatch):
-    """S1's source is one of the library's sources, and an edit to it
-    names another library, so the kernels are built again."""
+    """S1's source is one of the product library's sources, and an edit to
+    it names another product library, so the kernels are built again; the
+    lab library, which does not include it, keeps its name."""
     import shutil
 
     from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.tools import _lab_kernels
 
-    assert "shard_parity.cu" in [p.name for p in _kernels._sources()]
+    assert "shard_parity.cu" in [p.name for p in _kernels.LIB.sources()]
     shutil.copytree(_kernels.CSRC, tmp_path / "csrc")
-    monkeypatch.setattr(_kernels, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_kernels.LIB, "source_dir", tmp_path / "csrc")
     before = _kernels.library_path()
+    lab = _lab_kernels.library_path()
     src = tmp_path / "csrc" / "shard_parity.cu"
     src.write_text(src.read_text() + "\n// edited\n")
     assert _kernels.library_path() != before
+    assert _lab_kernels.library_path() == lab

@@ -103,9 +103,25 @@ def packed_setup():
     return data, jt, jst
 
 
+@pytest.fixture(scope="module")
+def unsharded_tapes(packed_setup):
+    """The same bytes on the port's two one-device tapes: DeviceTape (the
+    int32 index) and PackedDeviceTape (rank-select)."""
+    data = packed_setup[0]
+    return (DeviceTape.from_tape(pcreate_from_bytes(data, backend="golden"),
+                                 device="cpu"),
+            PackedDeviceTape(data, device="cpu"))
+
+
 @pytest.mark.parametrize("use_pallas", [None, False, True])
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 8])
-def test_sharded_packed_lookups_match_jax(packed_setup, n, use_pallas):
+def test_sharded_packed_lookups_match_jax(packed_setup, unsharded_tapes, n,
+                                          use_pallas):
+    """Every served byte, length and validity against the JAX tape, and
+    the same queries (out-of-range records and fields, windows shorter
+    than the fields) through DeviceTape and PackedDeviceTape give the
+    same answers: one slot arithmetic and one byte window serve all
+    three."""
     data, jt, jst = packed_setup
     st = ShardedPackedTape(data, _mesh(n), use_pallas=use_pallas)
     assert (st.record_cnt, st.field_cnt, st.jump, st.num_data_records) == \
@@ -118,8 +134,11 @@ def test_sharded_packed_lookups_match_jax(packed_setup, n, use_pallas):
     assert (got[rows:] == want[-1]).all() and (want[rows:] == got[-1]).all()
     recs, flds = _queries(jt, 300, n)
     for max_len in (1, 16, 48):
-        _same_gather(st.gather_fields(recs, flds, max_len=max_len),
-                     jst.gather_fields(recs, flds, max_len=max_len))
+        got = st.gather_fields(recs, flds, max_len=max_len)
+        _same_gather(got, jst.gather_fields(recs, flds, max_len=max_len))
+        for tape in unsharded_tapes:
+            _same_gather(tape.gather_fields(recs, flds, max_len=max_len),
+                         got)
     _same_gather(st.gather_column(2, max_len=16),
                  jst.gather_column(2, max_len=16))
     assert st.to_host_lists(*st.gather_column(1, max_len=16)) == \
