@@ -64,17 +64,24 @@ Phases, each of which fails the run on any error:
    column gather's k, a random sample and the last k, with one launch a
    gather_column; its time on that column gather beside the plain
    version's and its bound;
-4. the offsets route on the same file: create(backend="cuda") (B3, the
-   words back to the host, native extraction, Tape) with its index held
+4. the offsets route on the same file: kernel E1 (csrc/fold_offsets.cu)
+   against native.extract_offsets_v3 and its plain version on B3's words
+   of the corpus and fuzz inputs (tiles 8, 64 and 512, three dialects),
+   of random words cut inside a row (bits in the padding) and of the
+   64 MiB block; create(backend="cuda") (B3, E1 on the card, the index
+   widened there and copied to the host once, Tape) with its index held
    entry for entry against the shifted golden index, 65,536 seek_field
-   calls and column(0); DeviceTape.from_tape with a warm-up batch and
-   three timed batches of lookups; create_streaming in 64 MiB chunks (B3
+   calls and column(0); DeviceTape.from_tape, which must take the card's
+   index tensor itself, with a warm-up batch and three timed batches of
+   lookups; create_streaming in 64 MiB chunks (B3
    once a chunk, the carry chained on the card); build_index_device on
    the block; and the entry points of B4, B5 and B6 on the block;
 5. kernel and plain times on the card at the paths' shapes (B3 and B6 at
    64 MiB also from CUDA graphs, beside their eager times; B5 from CUDA
-   graphs at 64 MiB and 1 GiB, beside its eager times), and the parts of
-   create at 1 GiB;
+   graphs at 64 MiB and 1 GiB, beside its eager times), E1 at TPC-H
+   LINEITEM SF 1's shape (benchmark/gen.py's table) and at 1 GiB beside
+   its plain version, the native extractor and its bound, and the parts
+   of create at 1 GiB;
 6. the measurement path (csv_simd_tpu_torch.tools, each tool's run as
    `python -m csv_simd_tpu_torch.tools.<name>` runs it, after its gate in
    phase 2, and after its check, which holds every kernel it then times
@@ -275,7 +282,7 @@ GATED = ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
          "mosaic_probes.cmp8", "mosaic_probes.select8",
          "mosaic_probes.sublane_concat", "mosaic_probes.unsigned_reduce",
          "widestore_probe4.concat_mm", "utf8_errs", "quote_parity",
-         "json_stage1", "kth_positions")
+         "json_stage1", "kth_positions", "fold_offsets")
 # the gather reads 64 of each input row's 512 bytes; a pack product's
 # work is its multiply-adds, which its plain version's op count misses
 READS_AN_EIGHTH = ("widestore_probe2.s8_st16",)
@@ -1173,6 +1180,116 @@ def run_rank_select(gate: Gate, device, block: bytes, tape) -> dict:
             "plain_ms": cuda_ms(lambda: _kth_positions_plain(words, cum, ks),
                                 3),
             "bound": kth_bound(ks, pos, cum.numel())}
+
+
+def e1_bound(words: torch.Tensor, out: torch.Tensor) -> tuple:
+    """E1's bound (bound() entry: ms, by, bytes moved, operations, rate):
+    it reads the words twice, writes 4 bytes an offset and a row's count
+    and first slot (4 bytes each, read back once); about 64 operations a
+    word over both passes (each word's bits masked and counted for its
+    eight rows) and 6 an offset written."""
+    n_words, rows = words.numel(), words.numel() // 16
+    moved = 2 * 4 * n_words + 4 * out.numel() + 3 * 4 * rows
+    ops = 64 * n_words + 6 * out.numel()
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", moved, ops,
+            INT32_OPS_PER_S)
+
+
+def gate_e1(gate: Gate, words: torch.Tensor, tile: int, n_bytes: int,
+            what: str, want=None) -> torch.Tensor:
+    """Kernel E1 against native.extract_offsets_v3 on the same words (0
+    prepended) and its plain version on the card, and against `want` (a
+    host int64 index) when given; one launch a call."""
+    from csv_simd_tpu_torch import _kernels, native
+    from csv_simd_tpu_torch.ops.stage1_v3 import _fold_offsets_plain
+
+    before = _kernels.launch_counts()["fold_offsets"]
+    got = _kernels.fold_offsets(words, tile, n_bytes)
+    if _kernels.launch_counts()["fold_offsets"] != before + 1:
+        raise AssertionError(f"fold_offsets {what}: not one launch")
+    nat = native.extract_offsets_v3(words.cpu().numpy(), tile, n_bytes)
+    gate.same("fold_offsets", got[1:].to(torch.int64),
+              torch.from_numpy(nat).to(got.device), f"{what} against native")
+    gate.same("fold_offsets", got, _fold_offsets_plain(words, tile, n_bytes),
+              f"{what} against the plain version")
+    if int(got[0]) != 0:
+        raise AssertionError(f"fold_offsets {what}: no 0 sentinel")
+    if want is not None:
+        gate.same("fold_offsets", got.to(torch.int64),
+                  torch.from_numpy(want).to(got.device),
+                  f"{what} against golden")
+    return got
+
+
+def run_fold_offsets(gate: Gate, device, arrays, block: bytes,
+                     path: str, golden) -> dict:
+    """E1 gated on B3's words (every array at tiles 8, 64 and 512 in three
+    dialects, random words cut inside a row, the 64 MiB block), then timed
+    at TPC-H LINEITEM SF 1's shape (benchmark/gen.py's table, seed 1) and
+    on the 1 GiB file beside its plain version, the native extractor and
+    its bound."""
+    from benchmark import gen
+    from csv_simd_tpu_torch import Dialect, _kernels, native
+    from csv_simd_tpu_torch.index import _to_host, _upload_words
+    from csv_simd_tpu_torch.ops.stage1_v2 import pad_to_words
+    from csv_simd_tpu_torch.ops.stage1_v3 import (
+        _fold_offsets_plain,
+        stage1_fused,
+    )
+    from csv_simd_tpu_torch.tools._common import cuda_ms
+
+    for what, arr in arrays:
+        for kw in DIALECTS:
+            d = Dialect(**kw)
+            want = golden.structural_index(arr, d)
+            for tile in (8, 64, 512):
+                w = torch.from_numpy(pad_to_words(arr, row_align=tile))
+                words = stage1_fused(w.to(device), 0, d, row_tile=tile)[0]
+                gate_e1(gate, words, tile, arr.size, f"{what} {kw} {tile}",
+                        want)
+    gen_ = torch.Generator(device=device).manual_seed(23)
+    noise = torch.randint(-2**31, 2**31, (8192, 128), dtype=torch.int64,
+                          generator=gen_, device=device).to(torch.int32)
+    for cut in (0, 1, 333_333, 8192 * 64 * 8 - 5):
+        gate_e1(gate, noise, 512, cut, f"random words cut at {cut}")
+    arr = np.frombuffer(block, dtype=np.uint8)
+    words = stage1_fused(_upload_words(arr, device), 0, row_tile=512)[0]
+    gate_e1(gate, words, 512, arr.size, "64 MiB block",
+            golden.structural_index(arr))
+    del noise, words
+
+    def timed(arr: np.ndarray) -> dict:
+        w2d = _upload_words(arr, device)
+        words = stage1_fused(w2d, 0, row_tile=512)[0]
+        del w2d
+        out = _kernels.fold_offsets(words, 512, arr.size)
+        host = _to_host(words)
+        t0 = time.perf_counter()
+        nat = native.extract_offsets_v3(host, 512, arr.size)
+        native_s = time.perf_counter() - t0
+        gate.same("fold_offsets", out[1:].to(torch.int64),
+                  torch.from_numpy(nat).to(device),
+                  f"{arr.size} bytes, timed input")
+        res = {"bytes": int(arr.size), "offsets": out.numel() - 1,
+               "ms": cuda_ms(lambda: _kernels.fold_offsets(words, 512,
+                                                           arr.size), 20),
+               "plain_ms": cuda_ms(lambda: _fold_offsets_plain(
+                   words, 512, arr.size), 3),
+               "native_ms": native_s * 1e3, "bound": e1_bound(words, out)}
+        del words, out
+        torch.cuda.empty_cache()
+        return res
+
+    config = json.load(open(os.path.join(
+        REPO, "benchmark", "configs", "tpch-lineitem-sf1.json")))
+    lineitem = np.frombuffer(gen.Table(config, 1, device).to_bytes(),
+                             dtype=np.uint8)
+    out = {"lineitem": timed(lineitem)}
+    del lineitem
+    out["gib"] = timed(np.memmap(path, dtype=np.uint8, mode="r"))
+    return out
 
 
 def check_index(got: np.ndarray, index: np.ndarray, rows_len: int) -> None:
@@ -3036,7 +3153,6 @@ def main() -> int:
     from csv_simd_tpu_torch.index import (
         _to_host,
         _upload_words,
-        extract_offsets_from_packed,
         stage1_words,
     )
     from csv_simd_tpu_torch.offsetfree import (
@@ -3170,6 +3286,7 @@ def main() -> int:
     route, l_create = driven(run_offsets_route, path, device, index,
                              rows_len, per_block)
     need(l_create, "stage1_fold", 1, "create")
+    need(l_create, "fold_offsets", 1, "create")
     tape = route["tape"]
     print(f"create: {route['create_s']:.4f} s first call "
           f"({size / route['create_s'] / 1e9:.3f} GB/s), index of "
@@ -3179,12 +3296,19 @@ def main() -> int:
     dtape = csv_simd_tpu_torch.DeviceTape.from_tape(tape, device=device)
     torch.cuda.synchronize()
     upload_dt_s = time.perf_counter() - t0
+    if dtape.index is not tape._device_index:
+        raise AssertionError("DeviceTape.from_tape uploaded the index where "
+                             "create left it on the card")
     dt_lookups = check_lookups(dtape, data, index, rows_len, per_block,
                                4048, device)
     del dtape
-    print(f"DeviceTape: from_tape {upload_dt_s:.4f} s, {BATCHES + 1}x{BATCH} "
+    print(f"DeviceTape: from_tape {upload_dt_s:.4f} s (the card's index "
+          f"taken as it is), {BATCHES + 1}x{BATCH} "
           f"lookups checked ({dt_lookups:.0f} lookups/s over {BATCHES} "
           f"batches after a warm-up batch)")
+    e1 = run_fold_offsets(gate, device, arrays, block, path, golden)
+    print(f"E1 (fold_offsets): gated against native.extract_offsets_v3 and "
+          f"its plain version on {gate.checks['fold_offsets']} inputs")
 
     def streaming():
         t0 = time.perf_counter()
@@ -3471,19 +3595,20 @@ def main() -> int:
     fold, _ = stage1_fused(w2d, 0)
     torch.cuda.synchronize()
     parts["B3"] = time.perf_counter() - t0
+    del w2d
     t0 = time.perf_counter()
-    host = _to_host(fold)
-    parts["words to host"] = time.perf_counter() - t0
+    card_index = _kernels.fold_offsets(fold, 512, size)
+    torch.cuda.synchronize()
+    parts["E1"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    offsets = extract_offsets_from_packed(host, 512, size)
-    parts[f"extract ({extractor})"] = time.perf_counter() - t0
+    idx = _to_host(card_index.to(torch.int64))
+    parts["widen + index to host"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    idx = np.concatenate([np.zeros(1, dtype=np.int64), offsets])
     header = csv_simd_tpu_torch.Header.parse(mapped)
     split_tape = csv_simd_tpu_torch.Tape(mapped, idx, header)
-    parts["index + Header + Tape"] = time.perf_counter() - t0
+    parts["Header + Tape"] = time.perf_counter() - t0
     check_index(split_tape.index, index, rows_len)
-    del w2d, fold, host, offsets, idx, split_tape
+    del fold, card_index, idx, split_tape
 
     # phase 7: a trace of a warm create_packed and a warm create
     with tempfile.TemporaryDirectory() as trace_dir:
@@ -3636,6 +3761,13 @@ def main() -> int:
           f"{dt_lookups:.0f} lookups/s; PackedDeviceTape "
           f"{res['lookups_per_s']:.0f} lookups/s")
 
+    for key, what in (("lineitem", "TPC-H LINEITEM SF 1"), ("gib", "1 GiB")):
+        r = e1[key]
+        print(f"E1 (fold_offsets) on {card}, {what} ({r['bytes']} bytes, "
+              f"{r['offsets']} offsets): kernel {r['ms']:.4f} ms (with its "
+              f"count's readback), plain {r['plain_ms']:.3f} ms, native "
+              f"host extractor {r['native_ms']:.1f} ms, bound "
+              f"{r['bound'][0]:.4f} ms {r['bound'][1]}")
     kth_b = kth["bound"]
     print(f"rank-select (kth_positions) on {card}, a column gather of "
           f"{kth['records']} records ({kth['queries']} k, sorted halves) at "
@@ -3880,6 +4012,9 @@ def main() -> int:
         ("_kth_positions", "cuda", "csrc/rank_select.cu",
          "csv_simd_tpu/offsetfree.py:215", "kth_positions", l_packed,
          "kth_positions"),
+        ("_card_index", "cuda", "csrc/fold_offsets.cu",
+         "none: csv_simd_tpu extracts on the host (native "
+         "extract_offsets_v3)", "fold_offsets", l_create, "fold_offsets"),
     )
     # the input bytes each kernel's `ms` was timed on
     gib, blk_words = padded_rows(size) * ROW_BYTES, BLOCK_BYTES
@@ -3911,6 +4046,10 @@ def main() -> int:
     bound["kth_positions"] = kth["bound"]
     ms["kth_positions"], ms["kth_positions_plain"] = kth["ms"], \
         kth["plain_ms"]
+    # E1's: B3's words of the 1 GiB file, its offsets
+    bound["fold_offsets"] = e1["gib"]["bound"]
+    ms["fold_offsets"], ms["fold_offsets_plain"] = e1["gib"]["ms"], \
+        e1["gib"]["plain_ms"]
     kernels = [
         {"name": name, "route": route_, "source": src + source,
          "replaces": replaces, "launches": launches[counter],

@@ -9,10 +9,11 @@ serves batched field lookups, typed columns (int32, float32 with and
 without exponents, exact decimals, dates, datetimes), decoded fields and
 equality filters from it. The offsets route: `create(path)` builds the
 fold-layout words with kernel B3 (the stage-1 build's one pass, then
-csrc/relayout.cu `fold_words`), copies them to
-the host and extracts the offsets there into a `Tape`, which
-`DeviceTape.from_tape` serves from the card; `create_streaming` does the
-same chunk by chunk. Every function takes an explicit device; the
+csrc/relayout.cu `fold_words`), compacts them into the int32 offsets
+on the card with kernel E1 (csrc/fold_offsets.cu) and copies the index
+to the host once into a `Tape`; `DeviceTape.from_tape` serves from the
+card's index itself. `create_streaming` builds chunk by chunk and
+extracts each chunk's words on the host. Every function takes an explicit device; the
 default is "cuda", and device="cpu" runs the plain PyTorch versions of
 the kernels. The package imports torch and never jax or csv_simd_tpu:
 it keeps its own copies of the JAX package's pure-host modules (config,

@@ -41,7 +41,8 @@ vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
             "stage1_fold": 0, "stage1_v2": 0, "stage1_v1": 0,
             "fold_words": 0, "v1_words": 0, "utf8_errs": 0,
-            "quote_parity": 0, "json_stage1": 0, "kth_positions": 0}
+            "quote_parity": 0, "json_stage1": 0, "kth_positions": 0,
+            "fold_offsets": 0}
 
 
 def reset_launch_counts() -> None:
@@ -363,6 +364,47 @@ def row_prefix(packed: torch.Tensor) -> torch.Tensor:
                             scratch.data_ptr(), _stream(dev))
     _raise_on(err, "row_prefix")
     LAUNCHES["row_prefix"] += 1
+    return out
+
+
+_c_fold_offsets_scratch = LIB.fn("csv_fold_offsets_scratch", [ll], ll)
+_c_fold_offsets_count = LIB.fn("csv_fold_offsets_count",
+                               [vp, ll, ll, ll, vp, vp, vp])
+_c_fold_offsets_emit = LIB.fn("csv_fold_offsets_emit",
+                              [vp, ll, ll, ll, vp, vp, vp, ll, vp])
+
+
+def fold_offsets(packed: torch.Tensor, tile: int, n_bytes: int):
+    """Kernel E1 (csrc/fold_offsets.cu) on B3's CUDA fold-layout words
+    ((rows/8, 128) int32 at fold tile `tile`) -> (1 + count,) int32 on
+    their device: 0, then the ascending structural byte offsets below
+    n_bytes (< 2**31), bit for bit `native.extract_offsets_v3`'s. Two
+    passes over the words and one host read of the count between them."""
+    _check_words(packed, "fold_offsets")
+    if packed.numel() == 0 or packed.numel() % 128:
+        raise ValueError(f"fold_offsets: {packed.numel()} words is not a "
+                         "positive multiple of 128 (8 rows of 16)")
+    rows = packed.numel() // 16
+    _check_fold_tile(rows, tile, "fold_offsets")
+    if not 0 <= n_bytes < 2**31:
+        raise ValueError(f"fold_offsets: n_bytes {n_bytes} is not in "
+                         "[0, 2**31): the offsets are int32")
+    steps = rows // tile
+    dev = packed.device
+    with torch.cuda.device(dev):
+        counts = torch.empty(rows, dtype=torch.int32, device=dev)
+        scratch = torch.empty(_c_fold_offsets_scratch(steps),
+                              dtype=torch.int32, device=dev)
+        _raise_on(_c_fold_offsets_count(
+            packed.data_ptr(), rows // 8, tile, n_bytes, counts.data_ptr(),
+            scratch.data_ptr(), _stream(dev)), "fold_offsets")
+        total = int(scratch[-1])  # the one host sync: sizes the output
+        out = torch.empty(total + 1, dtype=torch.int32, device=dev)
+        _raise_on(_c_fold_offsets_emit(
+            packed.data_ptr(), rows // 8, tile, n_bytes, counts.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), total, _stream(dev)),
+            "fold_offsets")
+    LAUNCHES["fold_offsets"] += 1
     return out
 
 

@@ -3,7 +3,8 @@
 (`create_packed`).
 
 The index build takes a backend and a device: "cuda" (kernel B3 on the
-card, then native extraction on the host), "torch" (its plain PyTorch
+card, then kernel E1 compacts the index there, which the Tape keeps
+beside its host copy), "torch" (its plain PyTorch
 version on `device`), "native" (the C++ host engine), "golden" (the
 NumPy oracle) and "auto" ("cuda" for a CUDA device, "torch" otherwise).
 """
@@ -36,18 +37,16 @@ def _map(filename) -> np.ndarray:
     return np.frombuffer(mapped, dtype=np.uint8)
 
 
-def _build_index(data, dialect, backend: str, device):
+def _build_index(data, dialect, backend: str, device) -> tuple:
+    """(int64 host index, the card's int32 copy of it or None): the card
+    keeps the index that backend "cuda" compacted there, for
+    DeviceTape.from_tape."""
     from .utils.metrics import GLOBAL
 
+    from .index import _build_index_pair
+
     with GLOBAL.span(f"index_build[{backend}]", len(data)):
-        if backend == "golden":
-            from . import golden
-
-            return golden.structural_index(data, dialect)
-        from .index import build_index
-
-        return build_index(data, dialect=dialect, backend=backend,
-                           device=device)
+        return _build_index_pair(data, dialect, backend, device)
 
 
 def _check_utf8(data, device) -> None:
@@ -74,8 +73,8 @@ def create_from_bytes(data, dialect=None, backend: str = "auto",
     header = Header.parse(data, delimiter=dialect.delimiter,
                           quote_aware=dialect.header_quotes,
                           quote=dialect.quote)
-    index = _build_index(data, dialect, backend, device)
-    return Tape(data, index, header)
+    index, card_index = _build_index(data, dialect, backend, device)
+    return Tape(data, index, header, device_index=card_index)
 
 
 def create_packed(filename: str | os.PathLike, dialect=None,
@@ -97,8 +96,10 @@ def create(filename: str | os.PathLike, dialect=None, backend: str = "auto",
            validate_utf8: bool = False, device="cuda") -> Tape:
     """Build a Tape from a CSV file. The file is memory-mapped and the
     Tape serves a NumPy view of the mapping; with backend "cuda" the
-    bytes go to the card once, kernel B3 packs the structural mask, and
-    the words come back (1/8 of the input) for the host extractor."""
+    bytes go to the card once, kernel B3 packs the structural mask,
+    kernel E1 compacts it into the int32 index there, and the index comes
+    to the host in one copy; the card's index stays with the Tape for
+    DeviceTape.from_tape."""
     return create_from_bytes(_map(filename), dialect=dialect,
                              backend=backend, validate_utf8=validate_utf8,
                              device=device)

@@ -339,10 +339,14 @@ class DeviceTape(TypedColumnsMixin):
         self.header = header  # optional Header (column names)
         # guard before any int32 conversion: the host backends emit int64
         # indexes for inputs of 2 GiB or more, and a wrapped offset would
-        # silently mis-serve
-        idx_host = (index.detach().cpu().numpy()
-                    if isinstance(index, torch.Tensor) else np.asarray(index))
-        if idx_host.size and int(idx_host[-1]) >= 2**31:
+        # silently mis-serve. The index ascends, so its last entry is its
+        # largest: one entry is read, never a whole copy.
+        if isinstance(index, torch.Tensor):
+            n = index.numel()
+        else:
+            index = np.asarray(index)
+            n = index.size
+        if n and int(index.reshape(-1)[-1]) >= 2**31:
             raise ValueError(
                 "device tape uses int32 offsets: this index addresses "
                 ">= 2 GiB; serve it from the host Tape or build a "
@@ -355,17 +359,32 @@ class DeviceTape(TypedColumnsMixin):
             host = as_u8(data)
             self.data = _to_device(host, host.size, self.device)
         with GLOBAL.span("device_tape.index_upload"):
-            self.index = torch.from_numpy(np.ascontiguousarray(
-                idx_host, dtype=np.int32)).to(self.device)
+            if isinstance(index, torch.Tensor):
+                # as it is when it already is a contiguous int32 tensor on
+                # this device
+                self.index = index.to(device=self.device,
+                                      dtype=torch.int32).contiguous()
+            else:
+                self.index = torch.from_numpy(np.ascontiguousarray(
+                    index, dtype=np.int32)).to(self.device)
         self.jump = int(jump)
         self.field_cnt = int(field_cnt)
         self.record_cnt = int(record_cnt)
 
     @classmethod
     def from_tape(cls, tape, device="cuda") -> "DeviceTape":
-        return cls(tape.data_bytes, np.asarray(tape.index),
-                   tape.record_jump_size, tape.field_cnt, tape.record_cnt,
-                   header=tape.header, device=device)
+        """The tape's bytes and index on `device`. A Tape that `create`
+        built on that card holds its index there already (int32, the
+        sentinel included), and the DeviceTape serves from that tensor
+        itself; any other Tape's host index is cast and uploaded."""
+        index = getattr(tape, "_device_index", None)
+        if index is not None and index.device == resolve_device(device):
+            GLOBAL.count("device_tape.index_shared", 1)
+        else:
+            index = np.asarray(tape.index)
+        return cls(tape.data_bytes, index, tape.record_jump_size,
+                   tape.field_cnt, tape.record_cnt, header=tape.header,
+                   device=device)
 
     def gather_fields(self, records, fields, max_len: int = 64):
         """Batched (record, field) -> (bytes, lengths, valid)."""

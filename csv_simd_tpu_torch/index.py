@@ -3,8 +3,9 @@
 
 The whole buffer goes to the device zero-padded (0x00 classifies to
 nothing), one stage-1 pass emits packed bitmask words (1 bit per input
-byte), and the offsets are extracted on the host (native fold decoder,
-or NumPy) or compacted on the device (`build_index_device`).
+byte), and the offsets are compacted on the card by kernel E1 (backend
+"cuda", under 2 GiB), extracted on the host (native fold decoder, or
+NumPy), or compacted by torch ops on the device (`build_index_device`).
 
 Backends: "cuda" (the hand-written kernels; needs a CUDA device),
 "torch" (their plain PyTorch versions on the given device), "native"
@@ -165,15 +166,29 @@ def extract_offsets_from_packed(packed_np: np.ndarray, tile: int,
         return np.flatnonzero(mask).astype(np.int64) + base
 
 
-def build_index(data: bytes | np.ndarray, dialect: Dialect = DEFAULT_DIALECT,
-                backend: str = "auto", device="cuda") -> np.ndarray:
-    """Full structural index with the 0 sentinel, as int64 host offsets,
-    bit-identical to golden.structural_index.
+def _card_index(arr: np.ndarray, dialect: Dialect, device) -> tuple:
+    """Backend "cuda" under 2 GiB: kernel B3 on the card, then kernel E1
+    on its words where they are -> (int64 host index with the 0 sentinel,
+    the same index as the card's int32 tensor). The host copy is the card
+    index widened there and copied once."""
+    from .ops.stage1_v3 import fold_offsets, stage1_fused
 
-    "cuda" runs kernel B3 (fold layout) on `device`, "torch" its plain
-    version there; both copy the words to the host and extract there.
-    Inputs of 2 GiB or more go through the streamed build in 64 MiB
-    chunks."""
+    w2d = _upload_words(arr, resolve_device(device))
+    packed, _par = stage1_fused(w2d, 0, dialect, row_tile=FOLD_TILE)
+    tile = min(FOLD_TILE, w2d.shape[0])
+    del w2d  # the padded bytes: B3 has them, nothing else reads them
+    with GLOBAL.span("index.device_extract", arr.size):
+        card = fold_offsets(packed, tile, arr.size)
+    GLOBAL.count("index.device_offsets", card.numel() - 1)
+    with GLOBAL.span("index.offsets_to_host"):
+        host = _to_host(card.to(torch.int64))
+    return host, card
+
+
+def _build_index_pair(data, dialect: Dialect, backend: str,
+                      device) -> tuple:
+    """build_index's index and, where it was built on the card, the same
+    index as the card's int32 tensor (None otherwise)."""
     arr = as_u8(data)
     backend = _resolve_backend(backend, device)
     if arr.size >= 2**31 and backend in ("cuda", "torch"):
@@ -185,28 +200,40 @@ def build_index(data: bytes | np.ndarray, dialect: Dialect = DEFAULT_DIALECT,
         step = 1 << 26
         for lo in range(0, arr.size, step):
             b.feed(arr[lo: lo + step])
-        return b.finish()
+        return b.finish(), None
     if backend == "native":
         from . import native
 
         index, _par = native.host_stage1(arr, dialect, with_sentinel=True)
-        return index
+        return index, None
     if backend == "golden":
         from . import golden
 
-        return golden.structural_index(arr, dialect)
-    from .ops.stage1_v3 import stage1_fused, stage1_swar_xla
+        return golden.structural_index(arr, dialect), None
+    if backend == "cuda":
+        return _card_index(arr, dialect, device)
+    from .ops.stage1_v3 import stage1_swar_xla
 
     w2d = _upload_words(arr, resolve_device(device))
-    if backend == "cuda":
-        packed, _par = stage1_fused(w2d, 0, dialect, row_tile=FOLD_TILE)
-    else:
-        packed, _par = stage1_swar_xla(w2d, 0, dialect, row_tile=FOLD_TILE)
+    packed, _par = stage1_swar_xla(w2d, 0, dialect, row_tile=FOLD_TILE)
     tile = min(FOLD_TILE, w2d.shape[0])
     with GLOBAL.span("index.words_to_host"):
         words = _to_host(packed)
     offsets = extract_offsets_from_packed(words, tile, arr.size)
-    return np.concatenate([np.zeros(1, dtype=np.int64), offsets])
+    return np.concatenate([np.zeros(1, dtype=np.int64), offsets]), None
+
+
+def build_index(data: bytes | np.ndarray, dialect: Dialect = DEFAULT_DIALECT,
+                backend: str = "auto", device="cuda") -> np.ndarray:
+    """Full structural index with the 0 sentinel, as int64 host offsets,
+    bit-identical to golden.structural_index.
+
+    "cuda" runs kernel B3 (fold layout) on `device` and kernel E1
+    compacts its words into the index there, which comes to the host in
+    one copy; "torch" runs B3's plain version on `device`, copies the
+    words to the host and extracts there. Inputs of 2 GiB or more go
+    through the streamed build in 64 MiB chunks."""
+    return _build_index_pair(data, dialect, backend, device)[0]
 
 
 def _device_offsets_v3(w2d: torch.Tensor, carry_in, dialect: Dialect,

@@ -1,7 +1,8 @@
 """Stage-1 v3 (csv_simd_tpu/ops/stage1_v3.py): the fold-layout build
 kernel B3 (`stage1_fused`), the sequential-layout B4
 (`stage1_fused_seq`), and their plain versions `stage1_swar_xla` and
-`stage1_seq_xla`.
+`stage1_seq_xla`; and kernel E1 (`fold_offsets`), which compacts B3's
+words into the int32 structural index on the card.
 
 Fold layout (tile-dependent, tile = min(row_tile, rows), default 512):
 for tile s and output row group g in [0, tile/8), bit 8b + sigma(j) of
@@ -14,7 +15,8 @@ find. On a CUDA tensor B3 launches the B1 kernel (csrc/stage1_v4.cu)
 and then `fold_words` (csrc/relayout.cu), which permutes B1's
 sequential words into the fold layout (its plain version is
 `_fold_from_seq_plain`), and B4 launches B1 alone, whose narrow words
-are B4's; on a CPU tensor each runs its plain version. The JAX flags `interpret`, `vma`
+are B4's; E1 launches csrc/fold_offsets.cu; on a CPU tensor each runs
+its plain version. The JAX flags `interpret`, `vma`
 and `base_mode` chose between Mosaic constructions; they are accepted
 and change nothing here.
 """
@@ -235,6 +237,51 @@ def stage1_fused_seq(w2d: torch.Tensor, carry_in=0,
 def count_packed(packed: torch.Tensor) -> torch.Tensor:
     """Total structural count from packed words (any layout), 0-d int32."""
     return popcount32(packed).sum(dtype=torch.int32)
+
+
+def _fold_offsets_plain(packed: torch.Tensor, tile: int,
+                        n_bytes: int) -> torch.Tensor:
+    """The plain version of E1 on any device: the fold layout unpacked to
+    a flat 0/1 byte mask as `unpack_packed_host` does, cut at n_bytes,
+    and its nonzero positions behind a 0."""
+    rows = packed.shape[0] * 8
+    gp = tile // 8
+    p3 = packed.reshape(rows // tile, gp, LANES)
+    # mask[step, j, g, lane, b] = bit 8b + sigma(j) of word (step*gp + g)
+    mask = torch.stack([
+        torch.stack([(p3 >> (8 * b + _SIGMA[j])) & 1 for b in range(4)],
+                    dim=-1)
+        for j in range(8)], dim=1)
+    hits = torch.nonzero(mask.reshape(-1)[:n_bytes]).view(-1)
+    head = torch.zeros(1, dtype=torch.int32, device=packed.device)
+    return torch.cat([head, hits.to(torch.int32)])
+
+
+def fold_offsets(packed: torch.Tensor, tile: int,
+                 n_bytes: int) -> torch.Tensor:
+    """Kernel E1: B3's fold-layout words ((rows/8, 128) int32 at fold tile
+    `tile`, a multiple of 8 that divides rows) -> (1 + count,) int32 on
+    their device: 0, then the ascending structural byte offsets below
+    n_bytes, which must be under 2**31. A set bit at or past n_bytes is
+    dropped. A CUDA tensor launches csrc/fold_offsets.cu, a CPU tensor
+    runs `_fold_offsets_plain`."""
+    if packed.dim() != 2 or packed.shape[1] != LANES:
+        raise ValueError(f"expected (rows/8, {LANES}) words, got "
+                         f"{tuple(packed.shape)}")
+    if packed.dtype != torch.int32:
+        raise ValueError(f"expected int32 words, got {packed.dtype}")
+    rows = packed.shape[0] * 8
+    if rows == 0 or tile <= 0 or tile % 8 or rows % tile:
+        raise ValueError(f"fold tile {tile} must be a positive multiple of "
+                         f"8 that divides the {rows} rows")
+    if not 0 <= n_bytes < 2**31:
+        raise ValueError(f"n_bytes {n_bytes} is not in [0, 2**31): the "
+                         "offsets are int32")
+    if _on_device(packed):
+        from .. import _kernels
+
+        return _kernels.fold_offsets(packed.contiguous(), tile, n_bytes)
+    return _fold_offsets_plain(packed, tile, n_bytes)
 
 
 def unpack_packed_host(packed: np.ndarray, n_bytes: int,

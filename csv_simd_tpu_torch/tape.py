@@ -183,11 +183,15 @@ class Tape(RecordSourceMixin):
     """The sealed public tape: bytes + structural index + record geometry
     (reference: tape.rs:74-153, init at tape.rs:315-347)."""
 
-    def __init__(self, data, index: np.ndarray, header: Header):
+    def __init__(self, data, index: np.ndarray, header: Header,
+                 device_index=None):
         # data: bytes or a uint8 array/memoryview (zero-copy mmap view)
         self._data = data
         self._index = np.asarray(index)
         self._header = header
+        # the same index as an int32 tensor where the build left it on a
+        # device (api.create on a card), for DeviceTape.from_tape; or None
+        self._device_index = device_index
         if header.new_line is NewLine.CRLF:
             self._jump = header.field_cnt + 1
         else:

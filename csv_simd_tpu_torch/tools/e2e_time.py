@@ -1,6 +1,6 @@
 """The two builds end to end on the card, warm: `create_packed` (B1, B2)
-and `create(backend="cuda")` (B3, the words to the host, native
-extraction, `Tape`) on one CSV file, host clock from the call to its
+and `create(backend="cuda")` (B3, E1 on the card, the index to the host
+once, `Tape`) on one CSV file, host clock from the call to its
 synchronised result.
 
     python -m csv_simd_tpu_torch.tools.e2e_time FILE.csv [rounds]

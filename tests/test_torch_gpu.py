@@ -985,6 +985,151 @@ def test_fold_quote_across_chunk_and_tile(cuda_device, tile):
                                                       carry_in=int(carry))
 
 
+def _counter(name: str) -> int:
+    from csv_simd_tpu_torch.utils.metrics import GLOBAL
+
+    st = GLOBAL.stages.get(name)
+    return st.calls if st is not None else 0
+
+
+def _native_index(packed: torch.Tensor, tile: int, n_bytes: int):
+    """native.extract_offsets_v3 on the same words, behind the 0."""
+    from csv_simd_tpu_torch import native
+
+    offs = native.extract_offsets_v3(packed.cpu().numpy(), tile, n_bytes)
+    return np.concatenate([np.zeros(1, np.int64), offs])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,tile", [(8, 8), (64, 8), (512, 64),
+                                       (512, 512), (2048, 512),
+                                       (16384, 16384), (24576, 512)])
+def test_fold_offsets_kernel_matches_native(cuda_device, rows, tile):
+    """Kernel E1 on B3's words of seeded random bytes with quotes, cut at
+    whole rows, inside a row and inside a word, and on random words (bits
+    in the padding): bit for bit native.extract_offsets_v3's offsets
+    behind a 0 and its plain version's; one launch a call."""
+    from csv_simd_tpu_torch.ops.stage1_v3 import (
+        _fold_offsets_plain,
+        fold_offsets,
+    )
+
+    arr = _bytes(rows, 3 * rows + tile)
+    w = torch.from_numpy(arr.view("<i4").reshape(rows, 128).copy())
+    w = w.to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + tile)
+    noise = torch.randint(-2**31, 2**31, (rows // 8, 128),
+                          dtype=torch.int64, generator=gen,
+                          device=cuda_device).to(torch.int32)
+    for kw in DIALECTS:
+        packed = stage1_fused(w, 0, Dialect(**kw), row_tile=tile)[0]
+        for words in (packed, noise):
+            for n in sorted({rows * 512, rows * 512 - 1, rows * 512 - 700,
+                             rows * 300 + 3, 1, 0}):
+                before = _kernels.launch_counts()["fold_offsets"]
+                got = fold_offsets(words, tile, n)
+                assert _kernels.launch_counts()["fold_offsets"] == before + 1
+                assert got.dtype == torch.int32
+                want = _native_index(words, tile, n)
+                np.testing.assert_array_equal(got.cpu().numpy(), want)
+                _same((got,), (_fold_offsets_plain(words, tile, n),))
+
+
+@pytest.mark.gpu
+def test_fold_offsets_kernel_refuses_bad_input(cuda_device):
+    w = torch.zeros((64, 128), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        _kernels.fold_offsets(w, 12, 100)
+    with pytest.raises(ValueError):
+        _kernels.fold_offsets(w, 1024, 100)
+    with pytest.raises(ValueError):
+        _kernels.fold_offsets(w, 512, 2**31)
+    with pytest.raises(ValueError):
+        _kernels.fold_offsets(w.cpu(), 512, 100)
+    with pytest.raises(ValueError):
+        _kernels.fold_offsets(w.view(-1)[:100], 8, 100)
+
+
+def _quoted_csv(seed: int, n: int) -> bytes:
+    """Seeded CSV of n rows: quoted fields with commas, newlines, CRLF and
+    escaped quotes among plain ones."""
+    rng = np.random.default_rng(seed)
+    cells = ('plain', '"a,b"', '"line\nbreak"', '"say ""hi"""', '', '7',
+             '"x\r\ny"', 'z z')
+    rows = ["a,b,c,d"]
+    for _ in range(n):
+        rows.append(",".join(cells[int(i)] for i in rng.integers(0, 8, 4)))
+    return ("\n".join(rows) + "\n").encode()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source", ["corpus", "quoted", "wide"])
+def test_create_on_card_index_equals_native(cuda_device, tmp_path, source):
+    """create on the card: the int64 index, sentinel included, equals the
+    "native" backend's; kernel E1 ran once a create, inside its span and
+    one host copy's, the counter index.device_offsets counts the offsets
+    it compacted, and the host extractor did not run."""
+    if source == "corpus":
+        datas = [c.data for c in all_cases() if c.data]
+    elif source == "quoted":
+        datas = [_quoted_csv(seed, n) for seed, n in
+                 ((1, 1), (2, 100), (3, 5000), (4, 40_000))]
+    else:
+        datas = [synthetic_wide_table(3 << 20)]
+    for i, data in enumerate(datas):
+        try:
+            want = ct.create_from_bytes(data, backend="native", device="cpu")
+        except ct.InvalidCsvFormat:
+            with pytest.raises(ct.InvalidCsvFormat):
+                ct.create_from_bytes(data, device=cuda_device)
+            continue
+        path = tmp_path / f"{source}{i}.csv"
+        path.write_bytes(data)
+        before = _kernels.launch_counts()["fold_offsets"]
+        spans = {k: _counter(k) for k in (
+            "index.device_offsets", "index.device_extract",
+            "index.offsets_to_host", "index.extract", "index.words_to_host")}
+        got = ct.create(str(path), device=cuda_device)
+        assert _kernels.launch_counts()["fold_offsets"] == before + 1
+        assert {k: _counter(k) - v for k, v in spans.items()} == {
+            "index.device_offsets": want.index.size - 1,
+            "index.device_extract": 1, "index.offsets_to_host": 1,
+            "index.extract": 0, "index.words_to_host": 0}
+        assert got.index.dtype == np.int64
+        np.testing.assert_array_equal(got.index, want.index)
+        card = got._device_index
+        assert card.dtype == torch.int32 and card.device.type == "cuda"
+        np.testing.assert_array_equal(card.cpu().numpy(), want.index)
+
+
+@pytest.mark.gpu
+def test_from_tape_shares_the_card_index(cuda_device, tmp_path):
+    """DeviceTape.from_tape on a Tape that create built on the card serves
+    from the card's own index tensor, counted by device_tape.index_shared;
+    a Tape of another backend, or a DeviceTape on the CPU, uploads, and
+    all of them answer alike."""
+    data = _quoted_csv(9, 20_000)
+    path = tmp_path / "q.csv"
+    path.write_bytes(data)
+    tape = ct.create(str(path), device=cuda_device)
+    shared = _counter("device_tape.index_shared")
+    dt = ct.DeviceTape.from_tape(tape, device=cuda_device)
+    assert _counter("device_tape.index_shared") == shared + 1
+    assert dt.index is tape._device_index
+    native = ct.create_from_bytes(data, backend="native", device="cpu")
+    assert native._device_index is None
+    uploaded = ct.DeviceTape.from_tape(native, device=cuda_device)
+    on_cpu = ct.DeviceTape.from_tape(tape, device="cpu")
+    assert _counter("device_tape.index_shared") == shared + 1
+    assert uploaded.index is not tape._device_index
+    rng = np.random.default_rng(3)
+    recs = rng.integers(-2, tape.record_cnt + 2, 3000).astype(np.int32)
+    flds = rng.integers(-1, 5, 3000).astype(np.int32)
+    want = [t.cpu() for t in on_cpu.gather_fields(recs, flds)]
+    for dev_tape in (dt, uploaded):
+        _same(dev_tape.gather_fields(recs, flds, 64), want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("chunks", [1, 3, 257])
 def test_v1_kernel_total_count(cuda_device, chunks):

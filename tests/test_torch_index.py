@@ -203,3 +203,139 @@ def test_slice_end_to_end_wide_table(tmp_path):
                     jdt.gather_fields(recs, flds, 48)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert os.path.getsize(path) == len(data)
+
+
+# --- kernel E1's plain version and the card index's hand-over -----------
+
+E1_CASES = {
+    "quoted_commas_newlines": b'a,b,c\n"x,y",2,"3\n4"\n"",",",\n',
+    "crlf": b'a,b\r\n1,"2\r\n3"\r\n4,5\r\n',
+    "empty": b"",
+    "no_structural_byte": b"abcdef" * 100,
+    "odd_size": (b'id,"n,m"\n' + b'7,"q\nr"\n' * 125)[:1000],
+    "past_one_tile": b"a,bb,ccc\n" * 40_000,
+}
+
+
+def _fold_words(arr: np.ndarray, td, tile: int):
+    """B3's plain fold-layout words of `arr` at fold tile `tile`."""
+    from csv_simd_tpu_torch.ops.stage1_v2 import pad_to_words
+    from csv_simd_tpu_torch.ops.stage1_v3 import stage1_fused
+
+    w = torch.from_numpy(pad_to_words(arr, row_align=tile))
+    return stage1_fused(w, 0, td, row_tile=tile)[0]
+
+
+@pytest.mark.parametrize("tile", [8, 64, 512])
+@pytest.mark.parametrize("name", list(E1_CASES))
+def test_fold_offsets_plain_matches_golden_and_jax(name, tile):
+    """E1's plain version (`ops.stage1_v3.fold_offsets` on a CPU tensor)
+    on B3's words: golden.structural_index and the JAX build_index, the
+    0 included, for sizes that are no multiple of 512 or of the tile."""
+    from csv_simd_tpu_torch.ops.stage1_v3 import fold_offsets
+
+    arr = np.frombuffer(E1_CASES[name], dtype=np.uint8)
+    for kw in DIALECTS.values():
+        jd, td = csv_simd_tpu.Dialect(**kw), ct.Dialect(**kw)
+        got = fold_offsets(_fold_words(arr, td, tile), tile, arr.size)
+        assert got.dtype == torch.int32
+        want = golden.structural_index(arr, jd)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(
+            got.numpy(), jbuild_index(arr, jd, backend="jnp"))
+
+
+@pytest.mark.parametrize("cut", [0, 1, 511, 512, 513, 4097])
+def test_fold_offsets_plain_drops_bits_past_n_bytes(cut):
+    """Set bits at and past n_bytes (in the last row and in padding rows)
+    are dropped, as native.extract_offsets_v3 drops them."""
+    from csv_simd_tpu_torch import native
+    from csv_simd_tpu_torch.ops.stage1_v3 import fold_offsets
+
+    rng = np.random.default_rng(cut)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (64, 128),
+                                          dtype=np.int64).astype(np.int32))
+    got = fold_offsets(words, 64, cut).numpy()
+    assert got[0] == 0 and np.all(got[1:] < cut)
+    assert np.all(np.diff(got[1:]) > 0)
+    if native.available():
+        np.testing.assert_array_equal(
+            got[1:], native.extract_offsets_v3(words.numpy(), 64, cut))
+    mask = ct.ops.stage1_v3.unpack_packed_host(words.numpy(), cut, tile=64)
+    np.testing.assert_array_equal(got[1:], np.flatnonzero(mask))
+
+
+@pytest.mark.parametrize("words,tile,n_bytes", [
+    (torch.zeros((8, 128), dtype=torch.int32), 12, 10),
+    (torch.zeros((8, 128), dtype=torch.int32), 128, 10),
+    (torch.zeros((8, 128), dtype=torch.int32), 64, 2**31),
+    (torch.zeros((8, 128), dtype=torch.int32), 64, -1),
+    (torch.zeros((8, 64), dtype=torch.int32), 64, 10),
+    (torch.zeros((8, 128), dtype=torch.int64), 64, 10),
+    (torch.zeros((0, 128), dtype=torch.int32), 8, 0),
+])
+def test_fold_offsets_refuses_bad_input(words, tile, n_bytes):
+    from csv_simd_tpu_torch.ops.stage1_v3 import fold_offsets
+
+    with pytest.raises(ValueError):
+        fold_offsets(words, tile, n_bytes)
+
+
+def _count(name: str) -> int:
+    from csv_simd_tpu_torch.utils.metrics import GLOBAL
+
+    st = GLOBAL.stages.get(name)
+    return st.calls if st is not None else 0
+
+
+@pytest.mark.parametrize("backend", ["torch", "native", "golden", "auto"])
+def test_from_tape_uploads_a_tape_without_a_card_index(backend):
+    """A Tape built off the card holds no device index: from_tape casts
+    and uploads its host index, and device_tape.index_shared stays."""
+    data = b'a,b\n"x,\ny",2\n3,4\n' * 50
+    tape = ct.create_from_bytes(data, backend=backend, device="cpu")
+    assert tape._device_index is None
+    shared, uploads = (_count("device_tape.index_shared"),
+                       _count("device_tape.index_upload"))
+    dt = ct.DeviceTape.from_tape(tape, device="cpu")
+    assert _count("device_tape.index_shared") == shared
+    assert _count("device_tape.index_upload") == uploads + 1
+    assert dt.index.dtype == torch.int32
+    np.testing.assert_array_equal(dt.index.numpy(), tape.index)
+    jdt = csv_simd_tpu.DeviceTape.from_tape(
+        csv_simd_tpu.create_from_bytes(data, backend="jnp"))
+    recs = np.arange(-1, tape.record_cnt + 1, dtype=np.int32)
+    for f in range(3):
+        flds = np.full(recs.size, f - 1, np.int32)
+        for g, w in zip(dt.gather_fields(recs, flds, 16),
+                        jdt.gather_fields(recs, flds, 16)):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("dtype,shared", [(torch.int32, True),
+                                          (torch.int64, False)])
+def test_from_tape_takes_a_device_index_on_its_device(dtype, shared):
+    """A Tape that holds its index on the requested device hands that
+    tensor to the DeviceTape (the same object when it is int32, so no
+    cast, copy or upload), counted by device_tape.index_shared."""
+    data = b"a,b,c\n1,2,3\n4,5,6\n"
+    host = ct.create_from_bytes(data, backend="native", device="cpu")
+    card = torch.from_numpy(host.index.astype(np.int32)).to(dtype)
+    tape = ct.Tape(data, host.index, host.header, device_index=card)
+    before = _count("device_tape.index_shared")
+    dt = ct.DeviceTape.from_tape(tape, device="cpu")
+    assert _count("device_tape.index_shared") == before + 1
+    assert (dt.index is card) == shared
+    assert dt.index.dtype == torch.int32
+    assert dt.gather_fields([1], [2])[0][0, 0] == ord("6")
+
+
+def test_device_tape_guard_reads_a_tensor_index_without_copying_it():
+    """The 2 GiB guard holds for a tensor index too: an int64 index whose
+    last entry addresses 2**31 or more is refused."""
+    index = torch.tensor([0, 5, 2**31], dtype=torch.int64)
+    with pytest.raises(ValueError, match="2 GiB"):
+        ct.DeviceTape(b"x" * 8, index, 1, 1, 2, device="cpu")
+    ok = ct.DeviceTape(b"ab\ncd\n", torch.tensor([0, 2, 5]), 1, 1, 2,
+                       device="cpu")
+    assert ok.index.dtype == torch.int32

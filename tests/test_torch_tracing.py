@@ -7,7 +7,10 @@ nests in the profiler's trace, and with none running it never enters
 one. A counter keeps its count in `calls` with its seconds at 0. The
 instrumented paths: the pad (`offsetfree.pad`, `offsetfree.pin_alloc`),
 the host index build (`index.words_to_host`, `index.extract`,
-`device_tape.index_upload`), the packed serve (`offsetfree.serve`,
+`device_tape.index_upload`; on a card `index.device_extract`,
+`index.offsets_to_host` and the counters `index.device_offsets` and
+`device_tape.index_shared`, held by tests/test_torch_gpu.py), the packed
+serve (`offsetfree.serve`,
 `offsetfree.rank_select`, the counter `offsetfree.lookups`) and SQL
 (`sql.parse`, `query.group_keys`, `query.key_factorize`,
 `query.key_factorize_int`, `query.parse_column`, `query.group_reduce`,
