@@ -218,6 +218,14 @@ Phases, each of which fails the run on any error:
    command that reaches it; last `python -m csv_simd_tpu_torch info`
    of the 1 GiB table in a process of its own, its output equal to the
    in-process one's and no jax or csv_simd_tpu in its modules.
+13. one PackedDeviceTape past 2 GiB, last, after phase 12: create_packed
+   of a file just past 2^31 bytes (tests/wide_cases.py: three fields a
+   row, a quoted field of commas, line breaks and doubled quotes
+   straddling byte 2^31), B1, B2 and the rank-select kernel launched;
+   its int64 rank-select answers, served fields and two int32 columns
+   for 20,000 records before, across and past the boundary held against
+   the NumPy reckoning, and the counter offsetfree.kth_wide_queries
+   required to be non-zero; its warm create_packed time.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -2558,6 +2566,7 @@ def run_sharded_path(gate: Gate, device, block: bytes, index: np.ndarray,
     from csv_simd_tpu_torch import _kernels
     from csv_simd_tpu_torch.config import DEFAULT_DIALECT as d
     from csv_simd_tpu_torch.offsetfree import (
+        _STAGE_BYTES,
         PackedDeviceTape,
         _to_device,
         prefix_for_packed,
@@ -2568,7 +2577,6 @@ def run_sharded_path(gate: Gate, device, block: bytes, index: np.ndarray,
         ShardedTape,
     )
     from csv_simd_tpu_torch.parallel.sharded import (
-        _STAGE_BYTES,
         _local_parity_plain,
         build_index_sharded,
         make_mesh,
@@ -3139,6 +3147,42 @@ def need(launches: dict, name: str, at_least: int, what: str) -> None:
     if launches[name] < at_least:
         raise AssertionError(f"{what}: kernel {name} launched "
                              f"{launches[name]} times, want >= {at_least}")
+
+
+def run_wide_packed(device) -> dict:
+    """Phase 13: create_packed of a file just past 2^31 bytes, one tape
+    with int64 byte positions, checked against the reckoning of
+    tests/wide_cases.py; the wide rank-select counter must count."""
+    import csv_simd_tpu_torch as ct
+    from csv_simd_tpu_torch.utils.metrics import GLOBAL
+    from wide_cases import PastCsv, check_tape
+
+    t_phase = time.perf_counter()
+    case = PastCsv(2**31)
+    fd, path = tempfile.mkstemp(suffix=".csv")
+    os.close(fd)
+    try:
+        case.data.tofile(path)
+        tape, launched = driven(ct.create_packed, path, device=device)
+        need(launched, "stage1_v4", 1, "create_packed past 2 GiB")
+        need(launched, "row_prefix", 1, "create_packed past 2 GiB")
+        st = GLOBAL.stages.get("offsetfree.kth_wide_queries")
+        before = st.calls if st is not None else 0
+        records = case.records(np.random.default_rng(13), 20_000)
+        top, served = driven(check_tape, tape, case, records)
+        need(served, "kth_positions", 1, "serving past 2 GiB")
+        wide = GLOBAL.stages["offsetfree.kth_wide_queries"].calls - before
+        if wide <= 0 or top <= 2**31:
+            raise AssertionError(
+                f"past 2 GiB: {wide} k counted as wide, the last byte "
+                f"checked at {top}")
+        del tape
+        warm = warm_s(lambda: ct.create_packed(path, device=device))
+    finally:
+        os.unlink(path)
+    return {"bytes": int(case.data.size), "records": int(records.size),
+            "wide_queries": int(wide), "top": top, "warm_s": warm,
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def main() -> int:
@@ -3730,6 +3774,15 @@ def main() -> int:
           f"`python -m csv_simd_tpu_torch info` of the 1 GiB table in "
           f"{js['subprocess_s']:.1f} s without jax or csv_simd_tpu; phase "
           f"{js['phase_s']:.1f} s")
+
+    # phase 13: one PackedDeviceTape past 2^31 bytes; last, after 12
+    wd = run_wide_packed(device)
+    print(f"one PackedDeviceTape of {wd['bytes']} bytes: {wd['records']} "
+          f"records before, across and past byte 2^31 (up to byte "
+          f"{wd['top']}) equal to the reckoning, {wd['wide_queries']} k "
+          f"answered in int64; warm create_packed "
+          + ", ".join(f"{t:.4f}" for t in wd["warm_s"])
+          + f" s; phase {wd['phase_s']:.1f} s")
 
     gb = padded_rows(size) * ROW_BYTES / 1e9
     print(f"times on {card}:")

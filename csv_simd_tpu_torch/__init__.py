@@ -7,7 +7,8 @@ csrc/prefix.cu), with `validate_utf8=True` checks non-ASCII input with
 a third (the UTF-8 validator, csrc/utf8.cu), and `PackedDeviceTape`
 serves batched field lookups, typed columns (int32, float32 with and
 without exponents, exact decimals, dates, datetimes), decoded fields and
-equality filters from it. The offsets route: `create(path)` builds the
+equality filters from it, for a file of any size the card holds (int64
+byte positions from 2 GiB on). The offsets route: `create(path)` builds the
 fold-layout words with kernel B3 (the stage-1 build's one pass, then
 csrc/relayout.cu `fold_words`), compacts them into the int32 offsets
 on the card with kernel E1 (csrc/fold_offsets.cu) and copies the index
@@ -31,8 +32,8 @@ set operations (setops.py). Its entry points that build a tape take
 Sharding (`csv_simd_tpu_torch.parallel`) builds and serves over a mesh
 of shards (several may share one card): `sharded_stage1`,
 `build_index_sharded`, `ShardedTape` and `ShardedPackedTape`, which
-serves inputs of 2 GiB and more; `streaming.ShardedStreamingIndexBuilder`
-streams over a mesh.
+serves a file over several cards, each shard under 2 GiB;
+`streaming.ShardedStreamingIndexBuilder` streams over a mesh.
 """
 
 from .api import create, create_from_bytes, create_packed

@@ -454,18 +454,22 @@ def quote_parity(words: torch.Tensor, quote: int) -> torch.Tensor:
     return out
 
 
-_c_kth_positions = LIB.fn("csv_kth_positions", [vp, vp, ll, vp, ll, vp, vp])
+_c_kth_positions = LIB.fn("csv_kth_positions",
+                          [vp, vp, ll, vp, ll, vp, i32, vp])
 
 
 def kth_positions(words: torch.Tensor, cum_incl: torch.Tensor,
                   ks: torch.Tensor) -> torch.Tensor:
     """Rank-select (csrc/rank_select.cu) on the card: the packed words
     (rows * 16 int32 in row-major order, the narrow or wide layout), their
-    (rows,) int32 inclusive row prefix and (Q,) int32 ranks -> (Q,) int32
-    flat byte positions of the k-th set bits, bit for bit those of
-    `offsetfree._kth_positions_plain` for 0 <= k < total (unspecified
-    otherwise; the kernel reads only inside the index). One launch; none
-    for Q = 0."""
+    (rows,) int32 inclusive row prefix and (Q,) int32 ranks -> (Q,) flat
+    byte positions of the k-th set bits, int32 or, where the words cover
+    2**31 bytes or more, int64 (`device_tape._position_dtype`), bit for
+    bit those of `offsetfree._kth_positions_plain` for 0 <= k < total
+    (unspecified otherwise; the kernel reads only inside the index). One
+    launch; none for Q = 0."""
+    from .device_tape import _position_dtype
+
     _check_words(words, "kth_positions")
     for t, what in ((cum_incl, "kth_positions cum_incl"),
                     (ks, "kth_positions ks")):
@@ -482,13 +486,15 @@ def kth_positions(words: torch.Tensor, cum_incl: torch.Tensor,
         raise ValueError(f"kth_positions: {words.numel()} words are not 16 "
                          f"for each of the prefix's {rows} rows")
     dev = words.device
+    dtype = _position_dtype(words.numel() * 32)
     with torch.cuda.device(dev):
-        out = torch.empty(ks.numel(), dtype=torch.int32, device=dev)
+        out = torch.empty(ks.numel(), dtype=dtype, device=dev)
         if ks.numel() == 0:
             return out
         err = _c_kth_positions(
             words.data_ptr(), cum_incl.data_ptr(), rows, ks.data_ptr(),
-            ks.numel(), out.data_ptr(), _stream(dev))
+            ks.numel(), out.data_ptr(), int(dtype == torch.int64),
+            _stream(dev))
     _raise_on(err, "kth_positions")
     LAUNCHES["kth_positions"] += 1
     return out

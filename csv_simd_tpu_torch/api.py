@@ -83,8 +83,11 @@ def create_packed(filename: str | os.PathLike, dialect=None,
     """Build the offsets-free serving tape straight from a file: mmap,
     one padded copy into pinned memory and onto the device, kernel B1
     (build) and kernel B2 (row prefix). The index is the packed bitmask
-    and the row popcount prefix, never an offsets array. `device="cpu"`
-    runs the plain PyTorch versions instead of the kernels. With
+    and the row popcount prefix, never an offsets array. A file of any
+    size the device holds is one tape: its byte positions are int32 under
+    2 GiB and int64 from 2**31 bytes on (its structural count must stay
+    under 2**31). `device="cpu"` runs the plain PyTorch versions instead
+    of the kernels. With
     validate_utf8=True, input in which B1 counted a byte >= 0x80 is
     checked by the UTF-8 validator kernel on the bytes already on the
     card, and raises InvalidCsvFormat if it is not valid UTF-8."""

@@ -18,8 +18,9 @@
 // warps of a block combine in shared memory, with a running total over the
 // block's 2048 rows. The TPU kernel carried that total in SMEM across an
 // in-order grid; here blocks run in parallel, so their totals are scanned by
-// one block in a second pass and added back in a third. The counts stay below
-// 2^31 for inputs under 2 GiB, which the tape enforces.
+// one block in a second pass and added back in a third. Rows are addressed
+// in 64 bits, so the input may pass 2 GiB; the counts are int32, and the
+// tape refuses an input whose structural count reaches 2^31.
 #include <cuda_runtime.h>
 
 #include <cstdint>

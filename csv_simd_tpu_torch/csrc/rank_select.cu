@@ -19,7 +19,10 @@
 // the plain version's, bit for bit. For any other k the answer is
 // unspecified, as the plain version's is, and the kernel still reads only
 // inside the index: it clamps the row to the last one, as the plain
-// version's gather does.
+// version's gather does. The answer is int32 for words that cover fewer
+// than 2^31 bytes and int64 from there (`device_tape._position_dtype`):
+// one kernel, instantiated for both, whose int32 answers wrap as torch's
+// int32 arithmetic does.
 //
 // What bounds it on an H100: the latency of the binary search's dependent
 // loads, about log2(rows) of them a query (21 for TPC-H LINEITEM at SF 1,
@@ -58,10 +61,11 @@ __device__ __forceinline__ unsigned select_bit(uint32_t w, int j) {
   return pos;
 }
 
+template <typename Out>
 __global__ void __launch_bounds__(kThreads)
 kth_positions(const uint4* __restrict__ words, const int* __restrict__ cum,
               int rows, const int* __restrict__ ks, long long n,
-              int* __restrict__ out) {
+              Out* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const int k = __ldg(ks + i);
@@ -100,9 +104,13 @@ kth_positions(const uint4* __restrict__ words, const int* __restrict__ cum,
   }
 #pragma unroll
   for (int q = 1; q < 16; ++q) hit = (g >= q) ? w[q] : hit;
-  // int32 arithmetic that wraps as torch's does
-  out[i] = (int)((unsigned)row * 512u + (unsigned)g * 32u +
-                 select_bit(hit, j - before));
+  const unsigned bit = (unsigned)g * 32u + select_bit(hit, j - before);
+  if constexpr (sizeof(Out) == 8) {
+    out[i] = (long long)row * 512 + bit;
+  } else {
+    // int32 arithmetic that wraps as torch's does
+    out[i] = (int)((unsigned)row * 512u + bit);
+  }
 }
 
 }  // namespace
@@ -110,10 +118,11 @@ kth_positions(const uint4* __restrict__ words, const int* __restrict__ cum,
 extern "C" {
 
 // words: rows * 16 int32, 16-byte aligned; cum: rows int32, the inclusive
-// row prefix; ks: n int32; out: n int32. Launches nothing for n == 0.
-// Returns cudaGetLastError() after the launch.
+// row prefix; ks: n int32; out: n int32, or n int64 when wide is not 0.
+// Launches nothing for n == 0. Returns cudaGetLastError() after the launch.
 int csv_kth_positions(const void* words, const void* cum, long long rows,
-                      const void* ks, long long n, void* out, void* stream) {
+                      const void* ks, long long n, void* out, int wide,
+                      void* stream) {
   if (n == 0) return (int)cudaSuccess;
   if (rows <= 0 || rows > 0x7fffffffLL || n < 0 ||
       reinterpret_cast<uintptr_t>(words) % 16) {
@@ -121,10 +130,16 @@ int csv_kth_positions(const void* words, const void* cum, long long rows,
   }
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kth_positions<<<(unsigned)blocks, kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(words), static_cast<const int*>(cum),
-      (int)rows, static_cast<const int*>(ks), n, static_cast<int*>(out));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint4* w = static_cast<const uint4*>(words);
+  const int* c = static_cast<const int*>(cum);
+  const int* k = static_cast<const int*>(ks);
+  if (wide)
+    kth_positions<long long><<<(unsigned)blocks, kThreads, 0, st>>>(
+        w, c, (int)rows, k, n, static_cast<long long*>(out));
+  else
+    kth_positions<int><<<(unsigned)blocks, kThreads, 0, st>>>(
+        w, c, (int)rows, k, n, static_cast<int*>(out));
   return (int)cudaGetLastError();
 }
 

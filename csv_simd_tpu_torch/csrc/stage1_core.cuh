@@ -185,7 +185,8 @@ constexpr uint32_t kAggregate = 2u, kInclusive = 4u;
 // What a one-pass launch shares across its blocks. status (n_chunks words),
 // ticket and, when counting, nonascii are zero before the launch
 // (`reset_one_pass`); the last chunk's block writes scalars[0], the parity
-// out, and scalars[1], the non-ASCII count or -1.
+// out, and scalars[1], the non-ASCII count (held at 2^31 - 1 past it, so
+// that a count of more than 2 GiB never reads 0) or -1.
 struct OnePass {
   uint32_t* status;
   int* ticket;
@@ -512,8 +513,12 @@ __device__ __forceinline__ void one_pass(const uint4* __restrict__ in,
       st_release(g.status + cur, kInclusive | (carry ^ par));
       if (cur == g.n_chunks - 1) {
         g.scalars[0] = (int)(carry ^ par);
-        g.scalars[1] =
-            g.count_nonascii ? (int)atomicAdd(g.nonascii, 0ull) : -1;
+        if (g.count_nonascii) {
+          const unsigned long long h = atomicAdd(g.nonascii, 0ull);
+          g.scalars[1] = h < 0x7fffffffull ? (int)h : 0x7fffffff;
+        } else {
+          g.scalars[1] = -1;
+        }
       }
     }
     int after = g.n_chunks;

@@ -121,6 +121,13 @@ def _take_fill(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(idx < width, got, _INT32_MIN)
 
 
+def _position_dtype(n_bytes: int) -> torch.dtype:
+    """The dtype of flat byte positions into `n_bytes` bytes: int32 under
+    2 GiB, int64 from 2**31 bytes on. Every device tape's byte positions
+    take their type from here."""
+    return torch.int32 if n_bytes < 2**31 else torch.int64
+
+
 def _slots(records: torch.Tensor, fields: torch.Tensor, jump: int,
            field_cnt: int, record_cnt: int) -> tuple:
     """The reference's slot arithmetic for batched (record, field)
@@ -147,10 +154,11 @@ def _byte_window(data, starts: torch.Tensor, ends: torch.Tensor,
     """The bytes of each query's field [start, end), at most max_len of
     them: (out (N, max_len) uint8, zero past the field and for an invalid
     query; TRUE lengths (N,) int32, 0 for an invalid query; valid).
-    `take(data, pos, keep)` reads the int32 flat positions `pos` where
-    `keep`, and may overwrite `pos`, which nothing reads after it; by
-    default `data` is the flat bytes on one device."""
-    lengths = torch.where(valid, ends - starts, 0)
+    starts and ends are int32, or int64 past 2 GiB (`_position_dtype`).
+    `take(data, pos, keep)` reads the flat positions `pos` (of the starts'
+    dtype) where `keep`, and may overwrite `pos`, which nothing reads
+    after it; by default `data` is the flat bytes on one device."""
+    lengths = torch.where(valid, ends - starts, 0).to(torch.int32)
     pos = starts[:, None] + torch.arange(max_len, dtype=torch.int32,
                                          device=starts.device)[None, :]
     keep = (pos < ends[:, None]) & valid[:, None]
@@ -349,8 +357,9 @@ class DeviceTape(TypedColumnsMixin):
         if n and int(index.reshape(-1)[-1]) >= 2**31:
             raise ValueError(
                 "device tape uses int32 offsets: this index addresses "
-                ">= 2 GiB; serve it from the host Tape or build a "
-                "parallel.serving.ShardedPackedTape")
+                ">= 2 GiB; serve such a file from create_packed's "
+                "PackedDeviceTape (64-bit byte positions), the host Tape or "
+                "a parallel.serving.ShardedPackedTape")
         if isinstance(data, torch.Tensor):
             self.data = data.to(device=self.device, dtype=torch.uint8)
         else:

@@ -9,12 +9,20 @@ words, and a rank-select inside the hit word: on the card one launch of
 the rank-select kernel (csrc/rank_select.cu). Serving then gathers the
 bytes between two slots. Slot arithmetic is the reference's: slot =
 (r+1)*jump + f, value = bytes[pos(slot-1)+1 : pos(slot)].
+
+Byte positions are int32 under 2 GiB and int64 from 2**31 bytes on
+(`device_tape._position_dtype`, decided from the words alone), so one
+tape serves a file of any size the card holds. Structural counts (the
+row prefix, the slots, the k) stay int32: a tape whose structural count
+reaches 2**31 is refused.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -22,7 +30,13 @@ import torch
 from .artifact import _fingerprint
 from .config import DEFAULT_DIALECT, Dialect
 from .device import resolve_device
-from .device_tape import TypedColumnsMixin, _byte_window, _slots, as_int32
+from .device_tape import (
+    TypedColumnsMixin,
+    _byte_window,
+    _position_dtype,
+    _slots,
+    as_int32,
+)
 from .errors import InvalidCsvFormat
 from .ops.stage1_v2 import ROW_BYTES, padded_rows
 from .ops.stage1_v4 import stage1_fused_v4
@@ -31,10 +45,12 @@ from .tape import Header, NewLine
 from .utils import as_u8
 from .utils.metrics import GLOBAL
 
-_TWO_GIB_MSG = (
-    "PackedDeviceTape uses int32 flat byte positions: inputs of 2 GiB or "
-    "more need parallel.serving.ShardedPackedTape"
-)
+_STAGE_BYTES = 64 << 20  # one of the two pinned staging buffers of an upload
+# host threads that fill a staging buffer side by side: from a mapped 6 GB
+# file one thread filled the buffers at 4.3 GB/s, eight at 17 GB/s (the
+# 8-core host of an H100), the page faults and the copy both shared out
+_COPY_THREADS = min(8, os.cpu_count() or 1)
+_COPY_PART = 1 << 20  # a buffer fill of less than this stays on one thread
 
 
 def prefix_for_packed(packed: torch.Tensor) -> torch.Tensor:
@@ -82,9 +98,13 @@ def _kth_positions(words2d: torch.Tensor, row_cum_incl: torch.Tensor,
                    ks: torch.Tensor) -> torch.Tensor:
     """Flat byte positions of the k-th set bits (0 <= k < total bits):
     one launch of the rank-select kernel (`_kernels.kth_positions`) on a
-    CUDA tensor, the plain version on a CPU tensor. Positions for k
-    outside the index are unspecified, as in the JAX package, whose
-    out-of-range gathers clamp."""
+    CUDA tensor, the plain version on a CPU tensor. int32, or int64 where
+    the words cover 2**31 bytes or more (`_position_dtype`); the k
+    answered with int64 positions are counted. Positions for k outside
+    the index are unspecified, as in the JAX package, whose out-of-range
+    gathers clamp."""
+    wide = _position_dtype(words2d.numel() * 32) == torch.int64
+    GLOBAL.count("offsetfree.kth_wide_queries", ks.shape[0] if wide else 0)
     if ks.device.type == "cuda":
         from . import _kernels
 
@@ -97,14 +117,15 @@ def _kth_positions_plain(words2d: torch.Tensor, row_cum_incl: torch.Tensor,
                          ks: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the rank-select kernel (the JAX package's
     `_kth_positions`), on any device: a searchsorted on the row prefix
-    finds the row; that row's 16 words are gathered by flat index (narrow
-    and wide layouts alike) and scanned per query."""
+    finds the row; that row's 16 words are gathered as one row of the
+    narrow view (the wide layout is the same memory) and scanned per
+    query. Positions are of `_position_dtype`'s type for the words'
+    bytes."""
     rows = row_cum_incl.shape[0]
     row, j = _row_and_rank(row_cum_incl, ks)
-    cols = torch.arange(16, dtype=torch.int32, device=ks.device)
-    flat = words2d.reshape(-1)
-    wrow = flat[row.clamp(max=rows - 1)[:, None] * 16 + cols]  # (Q, 16)
-    return row * 512 + _bit_in_row(wrow, j)
+    wrow = words2d.reshape(-1, 16)[row.clamp(max=rows - 1).long()]  # (Q, 16)
+    return (row.to(_position_dtype(words2d.numel() * 32)) * 512
+            + _bit_in_row(wrow, j))
 
 
 def _row_and_rank(row_cum_incl: torch.Tensor, ks: torch.Tensor) -> tuple:
@@ -163,62 +184,126 @@ def _own_header(header) -> Header:
 
 def _to_device(arr: np.ndarray, n_bytes: int,
                device: torch.device) -> torch.Tensor:
-    """`arr` zero-padded to n_bytes, as one uint8 tensor on `device`.
-    The host buffer is written once; for a card it is pinned and copied
-    without blocking (the caching host allocator keeps it alive until
-    the copy is done)."""
+    """`arr` zero-padded to n_bytes, as one uint8 tensor on `device`
+    (`_upload_bytes` from byte 0)."""
     with GLOBAL.span("offsetfree.pad", n_bytes):
-        pin = device.type == "cuda"
-        with GLOBAL.span("offsetfree.pin_alloc"):
-            host = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=pin)
-        h = host.numpy()
-        h[: arr.size] = arr
-        h[arr.size:] = 0
-        return host.to(device, non_blocking=True) if pin else host
+        return _upload_bytes(arr, 0, n_bytes, device)
+
+
+@functools.lru_cache(maxsize=1)
+def _copy_pool() -> ThreadPoolExecutor:
+    return ThreadPoolExecutor(_COPY_THREADS,
+                              thread_name_prefix="csv_simd_copy")
+
+
+def _fill(dst: np.ndarray, src: np.ndarray) -> None:
+    """dst[:] = src (uint8, one size), cut into _COPY_THREADS parts that
+    the pool's threads copy at once: NumPy releases the GIL while it
+    copies."""
+    if src.size < _COPY_PART:
+        dst[:] = src
+        return
+    step = -(-src.size // _COPY_THREADS)
+
+    def part(a: int) -> None:
+        dst[a:a + step] = src[a:a + step]
+
+    for f in [_copy_pool().submit(part, a)
+              for a in range(0, src.size, step)]:
+        f.result()
+
+
+def _upload_bytes(arr: np.ndarray, lo: int, n_bytes: int,
+                  device: torch.device) -> torch.Tensor:
+    """Bytes lo .. lo + n_bytes of arr, zero past its end, as one uint8
+    tensor on `device`. For a card they pass through two pinned buffers
+    of _STAGE_BYTES in turn, one filled (by _COPY_THREADS threads) while
+    the other is copied, so the host's copy overlaps the upload and no
+    pinned copy of the whole range is made; the zeros are set on the
+    card. The caching host allocator keeps a buffer alive until its last
+    copy is done."""
+    got = max(0, min(arr.size - lo, n_bytes))
+    if device.type != "cuda":
+        out = torch.empty(n_bytes, dtype=torch.uint8, device=device)
+        h = out.numpy()
+        h[:got] = arr[lo:lo + got]
+        h[got:] = 0
+        return out
+    out = torch.empty(n_bytes, dtype=torch.uint8, device=device)
+    out[got:].zero_()
+    if got == 0:
+        return out
+    stream = torch.cuda.current_stream(device)
+    size = min(_STAGE_BYTES, got)
+    bufs = [torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            for _ in range(2 if got > size else 1)]
+    done = [None] * len(bufs)
+    for k, off in enumerate(range(0, got, _STAGE_BYTES)):
+        m = min(_STAGE_BYTES, got - off)
+        b = k % len(bufs)
+        if done[b] is not None:
+            done[b].synchronize()
+        if m < bufs[b].numel():
+            # the short last part gets a buffer of its size: no host
+            # tensor op (a slice) runs on the staging buffers
+            bufs[b] = torch.empty(m, dtype=torch.uint8, pin_memory=True)
+        _fill(bufs[b].numpy(), arr[lo + off:lo + off + m])
+        out[off:off + m].copy_(bufs[b], non_blocking=True)
+        done[b] = torch.cuda.Event()
+        done[b].record(stream)
+    return out
 
 
 class PackedDeviceTape(TypedColumnsMixin):
     """Device tape whose index is the sequential packed bitmask plus the
     row popcount prefix: built at scan speed, with no compaction pass.
-    The typed serving surface comes from TypedColumnsMixin on top of
-    `gather_fields`."""
+    It takes a file of any size the device holds: byte positions are
+    int64 from 2**31 bytes on. The typed serving surface comes from
+    TypedColumnsMixin on top of `gather_fields`."""
 
     def __init__(self, data: bytes | np.ndarray,
                  dialect: Dialect = DEFAULT_DIALECT,
                  validate_utf8: bool = False, device="cuda"):
         arr = as_u8(data)
-        if arr.size >= 2**31:
-            raise ValueError(_TWO_GIB_MSG)
         self.device = resolve_device(device)
         self.n_bytes = arr.size
         self.header = Header.parse(arr, delimiter=dialect.delimiter,
                                    quote_aware=dialect.header_quotes,
                                    quote=dialect.quote)
-        padded = _to_device(arr, padded_rows(arr.size) * ROW_BYTES,
-                            self.device)
-        # the wide (rows/8, 128) layout end to end; it is the narrow
-        # layout's buffer, so the saved artifact is a host reshape
-        packed, _par, na = stage1_fused_v4(
-            padded.view(torch.int32).view(-1, 8 * 128), 0, dialect,
-            count_nonascii=validate_utf8, out_mode="wide_native")
-        self.nonascii_count = na if validate_utf8 else None
-        self.words = packed
-        self.cum_incl = prefix_for_packed(packed)
-        self.data = padded[: arr.size]
-        # only input in which the build counted a byte >= 0x80 pays for the
-        # validator, which reads the bytes already on the device
-        if validate_utf8 and int(na):
-            from .ops.utf8 import validate_utf8_device
+        # the build, from the pad to the structural count's readback
+        with GLOBAL.span("offsetfree.build", arr.size):
+            padded = _to_device(arr, padded_rows(arr.size) * ROW_BYTES,
+                                self.device)
+            # the wide (rows/8, 128) layout end to end; it is the narrow
+            # layout's buffer, so the saved artifact is a host reshape
+            packed, _par, na = stage1_fused_v4(
+                padded.view(torch.int32).view(-1, 8 * 128), 0, dialect,
+                count_nonascii=validate_utf8, out_mode="wide_native")
+            self.nonascii_count = na if validate_utf8 else None
+            self.words = packed
+            self.cum_incl = prefix_for_packed(packed)
+            self.data = padded[: arr.size]
+            # only input in which the build counted a byte >= 0x80 pays for
+            # the validator, which reads the bytes already on the device
+            if validate_utf8 and int(na):
+                from .ops.utf8 import validate_utf8_device
 
-            if not validate_utf8_device(self.data):
-                raise InvalidCsvFormat("input is not valid UTF-8")
-        self._set_stride()
+                if not validate_utf8_device(self.data):
+                    raise InvalidCsvFormat("input is not valid UTF-8")
+            self._set_stride()
 
     def _set_stride(self) -> None:
         """Record geometry from the structural count, which must be a
         whole number of record strides (the reference's uniform-stride
-        invariant)."""
+        invariant) and under 2**31: the row prefix is int32."""
         count = int(self.cum_incl[-1])
+        # a row adds at most 512, so a prefix that passed 2**31 went
+        # negative on its way, whatever its last entry reads
+        if (_position_dtype(self.words.numel() * 32) == torch.int64
+                and bool((self.cum_incl < 0).any())):
+            raise ValueError(
+                "PackedDeviceTape counts structural bytes in int32: this "
+                "input has 2**31 or more delimiters and newlines")
         self.field_cnt = self.header.field_cnt
         self.jump = self.field_cnt + (
             1 if self.header.new_line is NewLine.CRLF else 0)
@@ -299,8 +384,6 @@ class PackedDeviceTape(TypedColumnsMixin):
     @classmethod
     def _from_parts(cls, words: np.ndarray, header: Header, arr: np.ndarray,
                     device) -> "PackedDeviceTape":
-        if arr.size >= 2**31:
-            raise ValueError(_TWO_GIB_MSG)
         # a copy: the caller's array may be read-only (a JAX export)
         w = np.array(words, dtype=np.int32, order="C").reshape(-1, 16)
         if w.shape[0] * ROW_BYTES < arr.size:

@@ -32,8 +32,8 @@ def _stage1_v4_plain(words: torch.Tensor, carry_in, dialect: Dialect,
                      count_nonascii: bool):
     """Plain PyTorch version of kernel B1 on any device: flat int32 byte
     quads (multiple of 8 words) and a carry (int or 0-d tensor) ->
-    (packed flat int32, parity 0-d int32, non-ASCII count 0-d int32, -1
-    when not counted)."""
+    (packed flat int32, parity 0-d int32, non-ASCII count 0-d int32, held
+    at 2**31 - 1 past it as the kernel holds it, -1 when not counted)."""
     masked, parity = _scan_masked(words.view(-1, 8), carry_in, dialect)
     # masked holds only bit-7 flags; the multiply-gather by 0x204081
     # lifts bits 7/15/23/31 to 28..31 (no carries), so a logical >> 28
@@ -43,7 +43,8 @@ def _stage1_v4_plain(words: torch.Tensor, carry_in, dialect: Dialect,
     for lane in range(1, 8):
         packed |= nib[:, lane] << (4 * lane)
     if count_nonascii:
-        nonascii = popcount32(words & _HI1).sum(dtype=torch.int32)
+        nonascii = popcount32(words & _HI1).sum(dtype=torch.int64).clamp(
+            max=2**31 - 1).to(torch.int32)
     else:
         nonascii = torch.full((), -1, dtype=torch.int32, device=words.device)
     return packed, parity.to(torch.int32), nonascii

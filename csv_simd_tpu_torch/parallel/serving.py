@@ -36,12 +36,12 @@ from ..device_tape import (
     _slots,
     as_int32,
 )
+from ..offsetfree import _upload_bytes
 from ..utils import as_u8
 from .sharded import (
     Mesh,
     _mesh_rows,
     _single_process,
-    _upload_bytes,
     _upload_shards,
     _words,
     sharded_stage1,

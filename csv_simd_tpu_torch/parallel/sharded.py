@@ -35,6 +35,7 @@ import torch
 
 from ..config import DEFAULT_DIALECT, Dialect
 from ..device import resolve_device
+from ..offsetfree import _upload_bytes
 from ..ops.stage1_v2 import LANES, ROW_BYTES, padded_rows
 from ..ops.stage1_v3 import (
     _as_carry,
@@ -55,7 +56,6 @@ from ..utils import as_u8
 
 AXIS = "data"
 _LAYOUTS = ("fold", "seq", "seq_wide")
-_STAGE_BYTES = 64 << 20  # one pinned staging buffer of a shard upload
 
 
 class Mesh:
@@ -290,39 +290,6 @@ def pad_words_for_mesh(arr: np.ndarray, n_shards: int) -> np.ndarray:
     padded = np.zeros(rows * ROW_BYTES, dtype=np.uint8)
     padded[: arr.size] = arr
     return padded.view("<i4").reshape(rows, LANES)
-
-
-def _upload_bytes(arr: np.ndarray, lo: int, n_bytes: int,
-                  device: torch.device) -> torch.Tensor:
-    """Bytes lo .. lo + n_bytes of arr, zero past its end, as one uint8
-    tensor on `device`. For a card they pass through two pinned buffers
-    of _STAGE_BYTES in turn, one filled while the other is copied, so no
-    host copy of the whole range is made; the zeros are set on the
-    card."""
-    got = max(0, min(arr.size - lo, n_bytes))
-    if device.type != "cuda":
-        out = torch.zeros(n_bytes, dtype=torch.uint8, device=device)
-        out.numpy()[:got] = arr[lo:lo + got]
-        return out
-    out = torch.empty(n_bytes, dtype=torch.uint8, device=device)
-    out[got:].zero_()
-    if got == 0:
-        return out
-    stream = torch.cuda.current_stream(device)
-    size = min(_STAGE_BYTES, got)
-    bufs = [torch.empty(size, dtype=torch.uint8, pin_memory=True)
-            for _ in range(2 if got > size else 1)]
-    done = [None] * len(bufs)
-    for k, off in enumerate(range(0, got, _STAGE_BYTES)):
-        m = min(_STAGE_BYTES, got - off)
-        b = k % len(bufs)
-        if done[b] is not None:
-            done[b].synchronize()
-        bufs[b].numpy()[:m] = arr[lo + off:lo + off + m]
-        out[off:off + m].copy_(bufs[b][:m], non_blocking=True)
-        done[b] = torch.cuda.Event()
-        done[b].record(stream)
-    return out
 
 
 def _upload_shards(arr: np.ndarray, rows: int, mesh: Mesh) -> list:

@@ -35,6 +35,7 @@ from csv_simd_tpu_torch.tools import _lab_kernels as lab
 
 from corpus import all_cases, synthetic_wide_table
 from rank_select_cases import CASES, RANKS, ranks, words_for
+from wide_cases import PastCsv, check_tape
 
 DIALECTS = ({}, dict(delimiter=0x3B, quote=0x27), dict(quote=0xA2))
 
@@ -2214,7 +2215,8 @@ def _kth_on_card(words: np.ndarray, layout: str, device):
 
 def _same_kth(ks: np.ndarray, cpu, cpu_cum, card, card_cum) -> None:
     """The kernel on the card against the plain version on the CPU, bit
-    for bit, with one launch (none for Q = 0)."""
+    for bit and of one dtype (int64 where the words cover 2**31 bytes or
+    more), with one launch (none for Q = 0)."""
     before = _kernels.launch_counts()["kth_positions"]
     got = _kernels.kth_positions(
         card, card_cum, torch.from_numpy(ks).to(card.device))
@@ -2222,7 +2224,9 @@ def _same_kth(ks: np.ndarray, cpu, cpu_cum, card, card_cum) -> None:
         before + (1 if ks.size else 0)
     torch.cuda.synchronize()
     want = _kth_positions_plain(cpu, cpu_cum, torch.from_numpy(ks))
-    assert got.dtype == torch.int32 and got.shape == want.shape
+    wide = card.numel() * 32 >= 2**31
+    assert got.dtype == (torch.int64 if wide else torch.int32)
+    assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got.cpu(), want)
 
 
@@ -2246,7 +2250,8 @@ def test_kth_kernel_past_two_to_the_22_rows(cuda_device):
     """A prefix of more than 2^22 rows (a binary search 23 levels deep):
     one set bit in most rows, random words in a few, every valid k in
     order and a shuffled sample. Positions of rows from 2^22 on pass
-    2^31 and wrap as int32 in both versions."""
+    2^31: the words cover more than 2 GiB, so both versions answer in
+    int64."""
     rows = (1 << 22) + 4096
     rng = np.random.default_rng(22)
     words = np.zeros((rows, 16), np.int32)
@@ -2312,3 +2317,31 @@ def test_gather_column_takes_the_rank_select_kernel(cuda_device):
         queries + 2 * gpu.num_data_records
     for g, c in zip(got, cpu.gather_column(3, max_len=48)):
         assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.gpu
+def test_create_packed_past_two_gib_on_card(cuda_device, tmp_path):
+    """create_packed of a file just past 2**31 bytes, with a quoted field
+    of commas, line breaks and doubled quotes straddling byte 2**31: one
+    PackedDeviceTape whose rank-select answers are int64 and, with the
+    served fields and two int32 columns, equal to the NumPy reckoning for
+    records before, across and past the boundary; every k counted as
+    wide."""
+    from csv_simd_tpu_torch.utils.metrics import GLOBAL
+
+    case = PastCsv(2**31)
+    assert case.data.size > 2**31 and case.straddle[0] < 2**31
+    assert case.straddle[1] > 2**31 + 4096
+    path = tmp_path / "past.csv"
+    case.data.tofile(path)
+    tape = create_packed(path, device=cuda_device)
+    assert tape.words.is_cuda and tape.n_bytes == case.data.size
+    records = case.records(np.random.default_rng(31), 20_000)
+    st = GLOBAL.stages.get("offsetfree.kth_wide_queries")
+    before = st.calls if st is not None else 0
+    top = check_tape(tape, case, records)
+    assert top > 2**31
+    # a record's k: 3 of the check's own rank-select call, 2 a field of
+    # the 3 served and of each of the 2 typed columns
+    assert GLOBAL.stages["offsetfree.kth_wide_queries"].calls == \
+        before + 13 * records.size

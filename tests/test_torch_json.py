@@ -127,8 +127,9 @@ def test_tensor_inputs_and_refusals():
 
 
 def test_inputs_of_2_gib_are_refused_before_any_copy():
-    """2**31 bytes raise ValueError, as PackedDeviceTape does, before the
-    bytes are copied anywhere (the buffers here are never written)."""
+    """2**31 bytes raise ValueError (the outputs are int32 positions, as
+    the JAX functions' are) before the bytes are copied anywhere (the
+    buffers here are never written)."""
     for big in (torch.empty(2**31, dtype=torch.uint8),
                 np.empty(2**31, np.uint8)):
         for fn in (pdev.json_depths_device, pdev.json_structural_mask_device,

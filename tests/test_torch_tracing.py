@@ -5,13 +5,16 @@ A span records calls, host seconds and bytes into a `Metrics`; while a
 torch profiler runs it also opens a `record_function` of its name, so it
 nests in the profiler's trace, and with none running it never enters
 one. A counter keeps its count in `calls` with its seconds at 0. The
-instrumented paths: the pad (`offsetfree.pad`, `offsetfree.pin_alloc`),
+instrumented paths: the packed build (`offsetfree.build`) and its pad
+(`offsetfree.pad`, a staged copy with no pinned buffer of the whole file,
+and no `offsetfree.pin_alloc`),
 the host index build (`index.words_to_host`, `index.extract`,
 `device_tape.index_upload`; on a card `index.device_extract`,
 `index.offsets_to_host` and the counters `index.device_offsets` and
 `device_tape.index_shared`, held by tests/test_torch_gpu.py), the packed
 serve (`offsetfree.serve`,
-`offsetfree.rank_select`, the counter `offsetfree.lookups`) and SQL
+`offsetfree.rank_select`, the counters `offsetfree.lookups` and
+`offsetfree.kth_wide_queries`) and SQL
 (`sql.parse`, `query.group_keys`, `query.key_factorize`,
 `query.key_factorize_int`, `query.parse_column`, `query.group_reduce`,
 `query.group_topk`, the counters `query.device_key_rows`,
@@ -228,8 +231,34 @@ def test_create_packed_records_the_pad(path):
     with _Delta() as d:
         ct.create_packed(path, device="cpu")
     assert d.calls("offsetfree.pad") == 1
-    assert d.calls("offsetfree.pin_alloc") == 1
+    # the pad stages the bytes: no buffer of the whole file is allocated
+    assert "offsetfree.pin_alloc" not in d.got
     assert GLOBAL.stages["offsetfree.pad"].bytes >= len(DATA)
+
+
+def test_create_packed_spans_the_build_and_registers_the_wide_counter(
+        path):
+    """One `offsetfree.build` span a packed build, with the pad inside it
+    and the file's bytes; a serve registers `offsetfree.kth_wide_queries`
+    at 0 on a tape under 2 GiB, and counts every k on words that cover
+    2**31 bytes or more."""
+    from csv_simd_tpu_torch.offsetfree import _kth_positions
+
+    with _Delta() as d:
+        tape = ct.create_packed(path, device="cpu")
+        tape.gather_fields(np.arange(6), np.zeros(6, np.int32))
+    assert d.calls("offsetfree.build") == 1
+    assert d.got["offsetfree.build"][1] >= d.got["offsetfree.pad"][1]
+    assert GLOBAL.stages["offsetfree.build"].bytes >= len(DATA)
+    st = GLOBAL.stages["offsetfree.kth_wide_queries"]
+    assert st.counter and d.got.get("offsetfree.kth_wide_queries",
+                                    (0,))[0] == 0
+    rows = (1 << 22) + 8  # a stride-0 view standing for 2 GiB of words
+    words = torch.zeros((1, 16), dtype=torch.int32).expand(rows, 16)
+    cum = torch.zeros(rows, dtype=torch.int32)
+    with _Delta() as d:
+        _kth_positions(words, cum, torch.zeros(5, dtype=torch.int32))
+    assert d.calls("offsetfree.kth_wide_queries") == 5
 
 
 def test_create_records_the_words_to_host_and_the_extraction(path):
