@@ -61,9 +61,15 @@ Phases, each of which fails the run on any error:
    shifted by whole blocks; the rank-select kernel (csrc/rank_select.cu)
    against its plain version in both word layouts, on every k of the
    64 MiB block's packed tape, sorted and shuffled, and at 1 GiB on a
-   column gather's k, a random sample and the last k, with one launch a
-   gather_column; its time on that column gather beside the plain
-   version's and its bound;
+   column gather's k, a random sample and the last k; its time on that
+   column gather beside the plain version's and its bound; the serve
+   kernel (the same file), which answers every gather_fields of the
+   path in one launch, against the plain serve in both word layouts on
+   every field of the 64 MiB block's records with invalid queries mixed
+   in, and at 1 GiB on a column gather and a lookup batch of 1,024
+   records x 16 fields; its time on both beside the plain serve's (the
+   batch also from a CUDA graph, the device's time alone) and its
+   bound;
 4. the offsets route on the same file: kernel E1 (csrc/fold_offsets.cu)
    against native.extract_offsets_v3 and its plain version on B3's words
    of the corpus and fuzz inputs (tiles 8, 64 and 512, three dialects),
@@ -221,7 +227,8 @@ Phases, each of which fails the run on any error:
 13. one PackedDeviceTape past 2 GiB, last, after phase 12: create_packed
    of a file just past 2^31 bytes (tests/wide_cases.py: three fields a
    row, a quoted field of commas, line breaks and doubled quotes
-   straddling byte 2^31), B1, B2 and the rank-select kernel launched;
+   straddling byte 2^31), B1, B2, the rank-select and the serve kernel
+   launched;
    its int64 rank-select answers, served fields and two int32 columns
    for 20,000 records before, across and past the boundary held against
    the NumPy reckoning, and the counter offsetfree.kth_wide_queries
@@ -290,7 +297,7 @@ GATED = ("stage1_v4", "row_prefix", "stage1_fold", "stage1_seq",
          "mosaic_probes.cmp8", "mosaic_probes.select8",
          "mosaic_probes.sublane_concat", "mosaic_probes.unsigned_reduce",
          "widestore_probe4.concat_mm", "utf8_errs", "quote_parity",
-         "json_stage1", "kth_positions", "fold_offsets")
+         "json_stage1", "kth_positions", "fold_offsets", "serve_packed")
 # the gather reads 64 of each input row's 512 bytes; a pack product's
 # work is its multiply-adds, which its plain version's op count misses
 READS_AN_EIGHTH = ("widestore_probe2.s8_st16",)
@@ -1152,6 +1159,119 @@ def kth_bound(ks: torch.Tensor, pos: torch.Tensor, rows: int) -> tuple:
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations", moved, ops,
             INT32_OPS_PER_S)
+
+
+def serve_args(tape, records: torch.Tensor, fields: torch.Tensor,
+               max_len: int) -> tuple:
+    """The arguments of `_kernels.serve_packed` and
+    `offsetfree._serve_plain` for a packed tape's gather_fields."""
+    return (tape.data, tape.words, tape.cum_incl, records, fields, tape.jump,
+            tape.field_cnt, tape.record_cnt, max_len)
+
+
+def serve_kernel(args: tuple) -> tuple:
+    """The serve kernel on serve_args' arguments, with int32 positions:
+    the tapes this script hands it directly are under 2 GiB."""
+    from csv_simd_tpu_torch import _kernels
+
+    return _kernels.serve_packed(*args, False)
+
+
+def gate_serve(gate: Gate, args: tuple, what: str) -> tuple:
+    """The serve kernel against the plain serve on the card, in both word
+    layouts; returns the kernel's (bytes, lengths, valid)."""
+    from csv_simd_tpu_torch.offsetfree import _serve_plain
+
+    want = _serve_plain(*args)
+    for layout in (args[1].view(-1, 128), args[1].view(-1, 16)):
+        got = serve_kernel((args[0], layout, *args[2:]))
+        for name, g, w in zip(("bytes", "lengths", "valid"), got, want):
+            gate.same("serve_packed", g, w, f"{what}, {name}")
+    return got
+
+
+def serve_bound(args: tuple, got: tuple) -> tuple:
+    """The serve kernel's bound (bound() entry: ms, by, bytes moved,
+    operations, rate): it reads each query's record and field (8 bytes),
+    writes its max_len bytes, length and validity (max_len + 5), reads of
+    the row prefix what the searches touch (ceil(log2(rows + 1)) entries a
+    query, at most the whole prefix once), each row of words that holds a
+    start or an end once (64 bytes) and the window's bytes it keeps. Its
+    operations, counted from the kernel's code: a query's K1 operations for
+    the start (kth_bound's), seven for the validity rule and the slot,
+    four a word of next_in_row (the bit's place, the mask, the find-first
+    and the select) for the end; and 12 a byte of the window loop (two
+    shuffles and the owner's min, two compares for the kept bytes, the
+    clamped address's add, max and min, the byte's shift and or into its
+    word, the column's step and compare)."""
+    from csv_simd_tpu_torch.offsetfree import _kth_positions
+
+    _, words, cum, records, fields, jump = args[:6]
+    max_len = args[-1]
+    _, lengths, valid = got
+    q = records.numel()
+    kept = int(torch.where(valid, lengths.clamp(0, max_len), 0).sum())
+    slots = ((torch.where(valid, records, 0).long() + 1) * jump
+             + torch.where(valid, fields, 0).long())
+    pos = _kth_positions(words, cum, torch.cat([slots - 1, slots]).int())
+    touched = int(torch.unique(torch.div(pos, 512,
+                                         rounding_mode="floor")).numel())
+    rows = cum.numel()
+    levels = int(np.ceil(np.log2(rows + 1)))
+    prefix = 4 * min(q * levels, rows)
+    moved = (8 + max_len + 5) * q + prefix + 64 * touched + kept
+    ops = q * (3 * levels + 3 * 16 + 15 + 6 * 5 + 4 + 7 + 16 * 4) \
+        + 12 * q * max_len
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", moved, ops,
+            INT32_OPS_PER_S)
+
+
+def run_serve(gate: Gate, device, block: bytes, tape) -> dict:
+    """The serve kernel gated against the plain serve on the card: every
+    field of every record of the 64 MiB block's packed tape with invalid
+    queries mixed in, and on the 1 GiB tape a column gather and a lookup
+    batch of 1,024 random records x 16 fields; then both timed through
+    the kernel (the batch also from a CUDA graph) and the plain serve,
+    with their bounds."""
+    from csv_simd_tpu_torch import PackedDeviceTape
+    from csv_simd_tpu_torch.offsetfree import _serve_plain
+    from csv_simd_tpu_torch.tools._common import cuda_ms, graph_ms
+
+    gen = torch.Generator(device=device).manual_seed(249)
+    bt = PackedDeviceTape(block, device=device)
+    n = bt.num_data_records * bt.field_cnt
+    recs = torch.arange(n, dtype=torch.int32, device=device) // bt.field_cnt
+    flds = torch.arange(n, dtype=torch.int32, device=device) % bt.field_cnt
+    bad = torch.rand(n, generator=gen, device=device) < 0.01
+    recs = torch.where(bad, recs - bt.num_data_records - 1, recs)
+    for max_len in (17, 64):
+        gate_serve(gate, serve_args(bt, recs, flds, max_len),
+                   f"64 MiB, every field, max_len {max_len}")
+    del bt, recs, flds, bad
+    n_col = int(tape.num_data_records)
+    col = serve_args(tape, torch.arange(n_col, dtype=torch.int32,
+                                        device=device),
+                     torch.full((n_col,), 1, dtype=torch.int32,
+                                device=device), 24)
+    col_got = gate_serve(gate, col, "1 GiB, column gather of field 1")
+    batch_recs = torch.randint(0, n_col, (1024,), generator=gen,
+                               device=device, dtype=torch.int32)
+    batch = serve_args(
+        tape, batch_recs.repeat_interleave(tape.field_cnt),
+        torch.arange(tape.field_cnt, dtype=torch.int32,
+                     device=device).repeat(1024), 32)
+    batch_got = gate_serve(gate, batch, "1 GiB, a lookup batch")
+    return {
+        "records": n_col, "batch": batch[3].numel(),
+        "ms": cuda_ms(lambda: serve_kernel(col), 20),
+        "plain_ms": cuda_ms(lambda: _serve_plain(*col), 3),
+        "bound": serve_bound(col, col_got),
+        "batch_ms": cuda_ms(lambda: serve_kernel(batch), 200),
+        "batch_graph_ms": graph_ms(lambda: serve_kernel(batch), 200),
+        "batch_plain_ms": cuda_ms(lambda: _serve_plain(*batch), 200),
+        "batch_bound": serve_bound(batch, batch_got)}
 
 
 def run_rank_select(gate: Gate, device, block: bytes, tape) -> dict:
@@ -3171,6 +3291,7 @@ def run_wide_packed(device) -> dict:
         records = case.records(np.random.default_rng(13), 20_000)
         top, served = driven(check_tape, tape, case, records)
         need(served, "kth_positions", 1, "serving past 2 GiB")
+        need(served, "serve_packed", 1, "serving past 2 GiB")
         wide = GLOBAL.stages["offsetfree.kth_wide_queries"].calls - before
         if wide <= 0 or top <= 2**31:
             raise AssertionError(
@@ -3182,7 +3303,7 @@ def run_wide_packed(device) -> dict:
         os.unlink(path)
     return {"bytes": int(case.data.size), "records": int(records.size),
             "wide_queries": int(wide), "top": top, "warm_s": warm,
-            "phase_s": time.perf_counter() - t_phase}
+            "launches": served, "phase_s": time.perf_counter() - t_phase}
 
 
 def main() -> int:
@@ -3310,7 +3431,7 @@ def main() -> int:
                            per_block)
     need(l_packed, "stage1_v4", 1, "create_packed")
     need(l_packed, "row_prefix", 1, "create_packed")
-    need(l_packed, "kth_positions", 1, "lookups")
+    need(l_packed, "serve_packed", 1, "lookups")
     print(f"create_packed: {res['build_s']:.4f} s "
           f"({size / res['build_s'] / 1e9:.3f} GB/s end to end, first call), "
           f"{BATCHES + 1}x{BATCH} lookups checked "
@@ -3318,13 +3439,19 @@ def main() -> int:
           f"after a warm-up batch), row ids checked; launches {l_packed}")
     main_tape = res.pop("tape")
     packed = main_tape.words
-    # the rank-select kernel on the 64 MiB block and the 1 GiB tape
-    kth = run_rank_select(gate, device, block, main_tape)
+    # the rank-select and serve kernels on the 64 MiB block and the 1 GiB
+    # tape
+    kth, l_kth = driven(run_rank_select, gate, device, block, main_tape)
+    need(l_kth, "kth_positions", 1, "rank-select")
+    srv, l_srv = driven(run_serve, gate, device, block, main_tape)
+    need(l_srv, "serve_packed", 1, "serve")
     del main_tape
     torch.cuda.empty_cache()
     print(f"rank-select (kth_positions): gated on every k of the 64 MiB "
           f"block and on {kth['queries']} k of a column gather of "
-          f"{kth['records']} records at 1 GiB, both layouts")
+          f"{kth['records']} records at 1 GiB, both layouts; serve "
+          f"(serve_packed): gated on every field of the 64 MiB block and on "
+          f"a column gather and a lookup batch at 1 GiB, both layouts")
 
     # path 2: the offsets route (B3 + host extraction -> Tape)
     route, l_create = driven(run_offsets_route, path, device, index,
@@ -3827,6 +3954,16 @@ def main() -> int:
           f"1 GiB: kernel {kth['ms']:.4f} ms, plain {kth['plain_ms']:.3f} ms, "
           f"bound {kth_b[0]:.4f} ms {kth_b[1]} ({kth_b[2]:.4g} B, "
           f"{kth_b[3]:.4g} ops)")
+    for what, key in (("a column gather of field 1", ""), ("a lookup batch",
+                                                           "batch_")):
+        b = srv[f"{key}bound"]
+        n = srv["records"] if not key else srv["batch"]
+        graph = (f", from a CUDA graph {srv['batch_graph_ms']:.4f} ms"
+                 if key else "")
+        print(f"serve (serve_packed) on {card}, {what} at 1 GiB ({n} "
+              f"queries): kernel {srv[key + 'ms']:.4f} ms{graph}, plain "
+              f"{srv[key + 'plain_ms']:.3f} ms, bound {b[0]:.4f} ms {b[1]} "
+              f"({b[2]:.4g} B, {b[3]:.4g} ops)")
     b1g = u8["bound_1GiB"]
     print(f"UTF-8 validator on {card}: 64 MiB {u8['ms']:.4f} ms (CUDA graph; "
           f"eager {u8['eager_ms']:.4f}; plain {u8['plain_ms']:.3f}; bound "
@@ -4063,11 +4200,15 @@ def main() -> int:
          "csv_simd_tpu/experiments/json_device.py:93", "json_stage1",
          js["launches"]["json-index"], "json_stage1"),
         ("_kth_positions", "cuda", "csrc/rank_select.cu",
-         "csv_simd_tpu/offsetfree.py:215", "kth_positions", l_packed,
+         "csv_simd_tpu/offsetfree.py:215", "kth_positions",
+         wd["launches"],
          "kth_positions"),
         ("_card_index", "cuda", "csrc/fold_offsets.cu",
          "none: csv_simd_tpu extracts on the host (native "
          "extract_offsets_v3)", "fold_offsets", l_create, "fold_offsets"),
+        ("_serve", "cuda", "csrc/rank_select.cu",
+         "csv_simd_tpu/offsetfree.py:249", "serve_packed", l_packed,
+         "serve_packed"),
     )
     # the input bytes each kernel's `ms` was timed on
     gib, blk_words = padded_rows(size) * ROW_BYTES, BLOCK_BYTES
@@ -4099,6 +4240,10 @@ def main() -> int:
     bound["kth_positions"] = kth["bound"]
     ms["kth_positions"], ms["kth_positions_plain"] = kth["ms"], \
         kth["plain_ms"]
+    # the serve kernel's: a column gather at 1 GiB, the rows it touches
+    bound["serve_packed"] = srv["bound"]
+    ms["serve_packed"], ms["serve_packed_plain"] = srv["ms"], \
+        srv["plain_ms"]
     # E1's: B3's words of the 1 GiB file, its offsets
     bound["fold_offsets"] = e1["gib"]["bound"]
     ms["fold_offsets"], ms["fold_offsets_plain"] = e1["gib"]["ms"], \

@@ -42,7 +42,7 @@ LAUNCHES = {"stage1_v4": 0, "stage1_v4_emit": 0, "row_prefix": 0,
             "stage1_fold": 0, "stage1_v2": 0, "stage1_v1": 0,
             "fold_words": 0, "v1_words": 0, "utf8_errs": 0,
             "quote_parity": 0, "json_stage1": 0, "kth_positions": 0,
-            "fold_offsets": 0}
+            "fold_offsets": 0, "serve_packed": 0}
 
 
 def reset_launch_counts() -> None:
@@ -498,6 +498,69 @@ def kth_positions(words: torch.Tensor, cum_incl: torch.Tensor,
     _raise_on(err, "kth_positions")
     LAUNCHES["kth_positions"] += 1
     return out
+
+
+_c_serve_packed = LIB.fn("csv_serve_packed",
+                         [vp, vp, ll, vp, ll, vp, vp, ll, i32, i32, ll, i32,
+                          vp, vp, vp, i32, vp])
+
+
+def serve_packed(data: torch.Tensor, words: torch.Tensor,
+                 cum_incl: torch.Tensor, records: torch.Tensor,
+                 fields: torch.Tensor, jump: int, field_cnt: int,
+                 record_cnt: int, max_len: int, wide: bool) -> tuple:
+    """The packed tape's batched serve (csrc/rank_select.cu `serve_packed`)
+    on the card: the flat bytes (n_bytes uint8, at least one), the packed
+    words and their (rows,) int32 inclusive row prefix as `kth_positions`
+    takes them, and (N,) int32 records and fields -> (bytes (N, max_len)
+    uint8, TRUE lengths (N,) int32, valid (N,) bool) on their device, bit
+    for bit `offsetfree._serve_plain`'s (but for a record of 2**31 - 1,
+    which this takes as invalid). Byte positions are int64 where `wide`,
+    which the caller sets where the words cover 2**31 bytes or more
+    (`device_tape._position_dtype`, as `offsetfree._serve` decides it),
+    and int32 otherwise. One launch; none for N = 0."""
+    _check_words(words, "serve_packed")
+    for t, what, dtype in ((data, "data", torch.uint8),
+                           (cum_incl, "cum_incl", torch.int32),
+                           (records, "records", torch.int32),
+                           (fields, "fields", torch.int32)):
+        if t.device != words.device:
+            raise ValueError(f"serve_packed {what}: expected "
+                             f"{words.device}, got {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"serve_packed {what}: expected {dtype}, got "
+                             f"{t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"serve_packed {what}: expected a contiguous "
+                             f"1-D tensor, got {tuple(t.shape)}")
+    rows = cum_incl.numel()
+    if rows == 0 or rows * 16 != words.numel():
+        raise ValueError(f"serve_packed: {words.numel()} words are not 16 "
+                         f"for each of the prefix's {rows} rows")
+    if records.numel() != fields.numel():
+        raise ValueError(f"serve_packed: {records.numel()} records but "
+                         f"{fields.numel()} fields")
+    if data.numel() == 0:
+        raise ValueError("serve_packed: no bytes")
+    if not 0 <= max_len < 2**31 or jump < 1:
+        raise ValueError(f"serve_packed: max_len {max_len} or jump {jump} "
+                         "out of range")
+    n = records.numel()
+    dev = words.device
+    with torch.cuda.device(dev):
+        out = torch.empty((n, max_len), dtype=torch.uint8, device=dev)
+        lengths = torch.empty(n, dtype=torch.int32, device=dev)
+        valid = torch.empty(n, dtype=torch.bool, device=dev)
+        if n == 0:
+            return out, lengths, valid
+        err = _c_serve_packed(
+            words.data_ptr(), cum_incl.data_ptr(), rows, data.data_ptr(),
+            data.numel(), records.data_ptr(), fields.data_ptr(), n, jump,
+            field_cnt, record_cnt, max_len, out.data_ptr(),
+            lengths.data_ptr(), valid.data_ptr(), int(wide), _stream(dev))
+    _raise_on(err, "serve_packed")
+    LAUNCHES["serve_packed"] += 1
+    return out, lengths, valid
 
 
 _c_json_stage1_segments = LIB.fn("csv_json_stage1_segments", [ll], ll)

@@ -5,10 +5,12 @@ The index is the sequential packed structural bitmask (1 bit per input
 byte, kernel B1) plus the inclusive popcount prefix over its 512-byte
 rows (kernel B2). A tape slot lookup (the k-th structural byte) is a
 searchsorted on the row prefix, a popcount scan of the hit row's 16
-words, and a rank-select inside the hit word: on the card one launch of
-the rank-select kernel (csrc/rank_select.cu). Serving then gathers the
+words, and a rank-select inside the hit word. Serving then gathers the
 bytes between two slots. Slot arithmetic is the reference's: slot =
-(r+1)*jump + f, value = bytes[pos(slot-1)+1 : pos(slot)].
+(r+1)*jump + f, value = bytes[pos(slot-1)+1 : pos(slot)]. On the card a
+batch of lookups is one launch of the serve kernel, and a bare
+rank-select one launch of the rank-select kernel (both in
+csrc/rank_select.cu).
 
 Byte positions are int32 under 2 GiB and int64 from 2**31 bytes on
 (`device_tape._position_dtype`, decided from the words alone), so one
@@ -150,14 +152,40 @@ def _bit_in_row(wrow: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
 
 def _serve(data, words2d, cum_incl, records, fields, jump: int,
            field_cnt: int, record_cnt: int, max_len: int):
-    GLOBAL.count("offsetfree.lookups", records.shape[0])
+    """Batched (record, field) -> (bytes (N, max_len) uint8, TRUE lengths
+    (N,) int32, valid (N,) bool): one launch of the serve kernel
+    (`_kernels.serve_packed`) on a CUDA tensor, the plain version on a CPU
+    tensor. Positions are int64 where the words cover 2**31 bytes or more
+    (`_position_dtype`); each query's two k (its start and end bits) then
+    count as wide, on either path."""
+    n = records.shape[0]
+    wide = _position_dtype(words2d.numel() * 32) == torch.int64
+    GLOBAL.count("offsetfree.lookups", n)
+    GLOBAL.count("offsetfree.kth_wide_queries", 2 * n if wide else 0)
     with GLOBAL.span("offsetfree.serve"):
-        slots, valid = _slots(records, fields, jump, field_cnt, record_cnt)
-        ks = torch.cat([slots - 1, slots])  # start bit, end bit
-        with GLOBAL.span("offsetfree.rank_select"):
-            pos = _kth_positions(words2d, cum_incl, ks)
-        n = slots.shape[0]
-        return _byte_window(data, pos[:n] + 1, pos[n:], valid, max_len)
+        if records.device.type != "cuda":
+            return _serve_plain(data, words2d, cum_incl, records, fields,
+                                jump, field_cnt, record_cnt, max_len)
+        from . import _kernels
+
+        GLOBAL.count("offsetfree.serve_kernel_queries", n)
+        return _kernels.serve_packed(data, words2d, cum_incl, records,
+                                     fields, jump, field_cnt, record_cnt,
+                                     max_len, wide)
+
+
+def _serve_plain(data, words2d, cum_incl, records, fields, jump: int,
+                 field_cnt: int, record_cnt: int, max_len: int):
+    """Plain PyTorch version of the serve kernel (the JAX package's
+    `_serve`), plain on any device: `_slots`, the plain rank-select of
+    every query's start and end bits (`_kth_positions_plain`),
+    `_byte_window`. It counts nothing."""
+    slots, valid = _slots(records, fields, jump, field_cnt, record_cnt)
+    ks = torch.cat([slots - 1, slots])  # start bit, end bit
+    with GLOBAL.span("offsetfree.rank_select"):
+        pos = _kth_positions_plain(words2d, cum_incl, ks)
+    n = slots.shape[0]
+    return _byte_window(data, pos[:n] + 1, pos[n:], valid, max_len)
 
 
 def packed_seq_meta(header, n_bytes: int, fingerprint: str) -> dict:

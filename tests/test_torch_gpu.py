@@ -19,6 +19,8 @@ from csv_simd_tpu_torch import _kernels, golden
 from csv_simd_tpu_torch.offsetfree import (
     _kth_positions_plain,
     _prefix_for_packed_xla,
+    _serve,
+    _serve_plain,
     prefix_for_packed,
 )
 from csv_simd_tpu_torch.ops.stage1_pallas import _stage1_pallas_plain, stage1_pallas
@@ -34,7 +36,15 @@ from csv_simd_tpu_torch.ops.stage1_v4 import _stage1_v4_plain, stage1_fused_v4
 from csv_simd_tpu_torch.tools import _lab_kernels as lab
 
 from corpus import all_cases, synthetic_wide_table
-from rank_select_cases import CASES, RANKS, ranks, words_for
+from rank_select_cases import (
+    CASES,
+    MAX_LENS,
+    RANKS,
+    STRIDES,
+    ranks,
+    serve_case,
+    words_for,
+)
 from wide_cases import PastCsv, check_tape
 
 DIALECTS = ({}, dict(delimiter=0x3B, quote=0x27), dict(quote=0xA2))
@@ -2298,23 +2308,169 @@ def test_kth_kernel_rejects_bad_input(cuda_device):
             _kernels.kth_positions(*bad)
 
 
+def _serve_on_card(words: np.ndarray, layout: int, jump: int,
+                   field_cnt: int, max_len: int, device, n: int = 20_000,
+                   seed: int = 0, cut: bool = False) -> None:
+    """The serve kernel on the card against the plain serve on the CPU,
+    bit for bit, on serve_case's bytes and queries over `words` in a
+    layout of `layout` words a row, with one launch a call."""
+    data, record_cnt, recs, flds = serve_case(words, jump, field_cnt, n,
+                                              seed=seed, cut=cut)
+    cpu = torch.from_numpy(np.ascontiguousarray(words.reshape(-1, layout)))
+    args = [torch.from_numpy(data), cpu, _prefix_for_packed_xla(cpu),
+            torch.from_numpy(recs), torch.from_numpy(flds)]
+    card = [t.to(device) for t in args]
+    card[2] = prefix_for_packed(card[1])
+    tail = (jump, field_cnt, record_cnt, max_len)
+    before = _kernels.launch_counts()
+    got = _kernels.serve_packed(*card, *tail, False)
+    after = _kernels.launch_counts()
+    assert after["serve_packed"] == before["serve_packed"] + 1
+    assert after["kth_positions"] == before["kth_positions"]
+    torch.cuda.synchronize()
+    want = _serve_plain(*args, *tail)
+    for g, w in zip(got, want):
+        assert g.device == card[0].device and g.dtype == w.dtype
+        assert g.shape == w.shape and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_len", MAX_LENS)
+@pytest.mark.parametrize("case", CASES)
+def test_serve_kernel_matches_plain(cuda_device, case, max_len):
+    """The serve kernel against the plain serve on the same words on the
+    CPU: the rank-select cases with commas at their bits (empty fields,
+    fields across words and 512-byte rows, fields ending in the row after
+    empty rows, fields longer than max_len with their TRUE lengths),
+    both layouts, LF and CRLF strides, the bytes whole and cut at the
+    last bit; valid queries, negative and last records, out-of-range
+    fields, the int32 extremes."""
+    words = words_for(case, rows=4096, seed=CASES.index(case) + 31)
+    for (jump, field_cnt), layout in zip(STRIDES, (16, 128)):
+        for cut in (False, True):
+            _serve_on_card(words, layout, jump, field_cnt, max_len,
+                           cuda_device, seed=max_len, cut=cut)
+
+
+@pytest.mark.gpu
+def test_serve_kernel_past_two_to_the_22_rows(cuda_device):
+    """Words of more than 2^22 rows cover more than 2 GiB: the kernel's
+    int64 positions, its fields past byte 2^31 and its forward search
+    over runs of empty rows, against the plain serve; the bytes (4 MiB)
+    are read at positions clamped into them, as the plain version's."""
+    rows = (1 << 22) + 4096
+    rng = np.random.default_rng(23)
+    words = np.zeros((rows, 16), np.int32)
+    bit = rng.integers(0, 512, rows)
+    hit = rng.random(rows) < 0.3
+    words[hit, bit[hit] // 32] = (np.uint32(1) << (bit[hit] % 32).astype(
+        np.uint32)).view(np.int32)
+    dense = rng.random(rows) < 0.002
+    words[dense] = rng.integers(-2**31, 2**31, (int(dense.sum()), 16),
+                                dtype=np.int64).astype(np.int32)
+    cpu = torch.from_numpy(words.reshape(-1, 128))
+    card = cpu.to(cuda_device)
+    cum_cpu, cum = _prefix_for_packed_xla(cpu), prefix_for_packed(card)
+    total = int(cum_cpu[-1])
+    data = torch.from_numpy(rng.integers(0, 256, 4 << 20, dtype=np.uint8))
+    record_cnt = total // 3
+    recs = torch.from_numpy(np.r_[rng.integers(0, record_cnt - 1, 100_000),
+                                  record_cnt - 2, record_cnt - 1, -1]
+                            .astype(np.int32))
+    flds = torch.from_numpy(rng.integers(0, 3, recs.numel()).astype(
+        np.int32))
+    for max_len in (8, 64):
+        tail = (3, 3, record_cnt, max_len)
+        got = _kernels.serve_packed(data.to(cuda_device), card, cum,
+                                    recs.to(cuda_device),
+                                    flds.to(cuda_device), *tail, True)
+        want = _serve_plain(data, cpu, cum_cpu, recs, flds, *tail)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert int(want[1].max()) > 4096  # fields across many empty rows
+
+
+@pytest.mark.gpu
+def test_serve_kernel_takes_the_last_int32_record_as_invalid(cuda_device):
+    """A record of 2^31 - 1 is invalid on the card (the plain version's
+    `records + 1 < record_cnt` wraps there): zeros, length 0."""
+    words = words_for("random", seed=4)
+    data, record_cnt, _, _ = serve_case(words, 3, 3, 0)
+    card = torch.from_numpy(words).to(cuda_device)
+    out, lengths, valid = _kernels.serve_packed(
+        torch.from_numpy(data).to(cuda_device), card,
+        prefix_for_packed(card),
+        torch.tensor([2**31 - 1, 0], dtype=torch.int32, device=cuda_device),
+        torch.tensor([0, 1], dtype=torch.int32, device=cuda_device), 3, 3,
+        record_cnt, 16, False)
+    assert valid.tolist() == [False, True]
+    assert lengths.tolist()[0] == 0 and out[0].eq(0).all()
+
+
+@pytest.mark.gpu
+def test_serve_kernel_with_no_queries_launches_nothing(cuda_device):
+    words = words_for("random", seed=6)
+    data, record_cnt, _, _ = serve_case(words, 3, 3, 0)
+    card = torch.from_numpy(words).to(cuda_device)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    before = _kernels.launch_counts()["serve_packed"]
+    for max_len in (0, 32):
+        out, lengths, valid = _kernels.serve_packed(
+            torch.from_numpy(data).to(cuda_device), card,
+            prefix_for_packed(card), none, none, 3, 3, record_cnt, max_len,
+            False)
+        assert out.shape == (0, max_len) and out.dtype == torch.uint8
+        assert lengths.shape == (0,) and valid.dtype == torch.bool
+    assert _kernels.launch_counts()["serve_packed"] == before
+
+
+@pytest.mark.gpu
+def test_serve_kernel_rejects_bad_input(cuda_device):
+    w = torch.zeros((64, 16), dtype=torch.int32, device=cuda_device)
+    cum = prefix_for_packed(w)
+    d = torch.zeros(100, dtype=torch.uint8, device=cuda_device)
+    q = torch.zeros(5, dtype=torch.int32, device=cuda_device)
+    good = (d, w, cum, q, q)
+    bad = [(d.cpu(), w, cum, q, q), (d, w.cpu(), cum, q, q),
+           (d, w, cum, q.cpu(), q), (d, w, cum, q, q.cpu()),
+           (d.to(torch.int32), w, cum, q, q), (d, w, cum, q.long(), q),
+           (d, w, cum.long(), q, q), (d, w.t(), cum, q, q),
+           (d, w, cum[:63], q, q), (d, w, cum, q, q[:4]),
+           (d, w, cum, q.view(5, 1), q), (d[:0], w, cum, q, q),
+           (d, w, cum, q[::2], q[::2])]
+    for args in bad:
+        with pytest.raises(ValueError):
+            _kernels.serve_packed(*args, 3, 3, 10, 8, False)
+    for tail in ((0, 3, 10, 8, False), (3, 3, 10, -1, False)):
+        with pytest.raises(ValueError):
+            _kernels.serve_packed(*good, *tail)
+
+
 @pytest.mark.gpu
 def test_gather_column_takes_the_rank_select_kernel(cuda_device):
     """One gather_column on a packed tape on the card: one launch of the
-    kernel, its 2 N queries counted, and the column equal to the CPU
-    tape's."""
+    serve kernel and none of the bare rank-select kernel, its N queries
+    counted, and the column equal to the CPU tape's."""
     from csv_simd_tpu_torch.utils.metrics import GLOBAL
 
     data = synthetic_wide_table(300_000)
     gpu = PackedDeviceTape(data, device=cuda_device)
     cpu = PackedDeviceTape(data, device="cpu")
-    st = GLOBAL.stages.get("offsetfree.kth_kernel_queries")
-    queries = st.calls if st is not None else 0
-    before = _kernels.launch_counts()["kth_positions"]
+
+    def calls(name):
+        st = GLOBAL.stages.get(name)
+        return st.calls if st is not None else 0
+
+    names = ("offsetfree.serve_kernel_queries",
+             "offsetfree.kth_kernel_queries", "offsetfree.kth_wide_queries")
+    queries = [calls(name) for name in names]
+    before = _kernels.launch_counts()
     got = gpu.gather_column(3, max_len=48)
-    assert _kernels.launch_counts()["kth_positions"] == before + 1
-    assert GLOBAL.stages["offsetfree.kth_kernel_queries"].calls == \
-        queries + 2 * gpu.num_data_records
+    after = _kernels.launch_counts()
+    assert after["serve_packed"] == before["serve_packed"] + 1
+    assert after["kth_positions"] == before["kth_positions"]
+    assert [calls(name) for name in names] == [
+        queries[0] + gpu.num_data_records, queries[1], queries[2]]
     for g, c in zip(got, cpu.gather_column(3, max_len=48)):
         assert torch.equal(g.cpu(), c)
 
@@ -2339,9 +2495,16 @@ def test_create_packed_past_two_gib_on_card(cuda_device, tmp_path):
     records = case.records(np.random.default_rng(31), 20_000)
     st = GLOBAL.stages.get("offsetfree.kth_wide_queries")
     before = st.calls if st is not None else 0
+    st = GLOBAL.stages.get("offsetfree.serve_kernel_queries")
+    served = st.calls if st is not None else 0
+    launches = _kernels.launch_counts()["serve_packed"]
     top = check_tape(tape, case, records)
     assert top > 2**31
     # a record's k: 3 of the check's own rank-select call, 2 a field of
-    # the 3 served and of each of the 2 typed columns
+    # the 3 served and of each of the 2 typed columns; the serve kernel
+    # answered the served fields and both columns, one launch each
     assert GLOBAL.stages["offsetfree.kth_wide_queries"].calls == \
         before + 13 * records.size
+    assert GLOBAL.stages["offsetfree.serve_kernel_queries"].calls == \
+        served + 5 * records.size
+    assert _kernels.launch_counts()["serve_packed"] == launches + 3

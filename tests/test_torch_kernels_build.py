@@ -76,7 +76,7 @@ def test_product_library_holds_no_probe():
     assert not list(_kernels.CSRC.glob("probe_*"))
     assert {p.name for p in _compiled._headers(
         probes, _lab_kernels.LIB.include_dirs)} == {"stage1_core.cuh"}
-    assert len(_kernels.LAUNCHES) == 13
+    assert len(_kernels.LAUNCHES) == 14
     assert not any(k.startswith("probe_") for k in _kernels.LAUNCHES)
     assert not any(name.startswith("probe_") for name in dir(_kernels))
     wrappers = {k for k in dir(_lab_kernels) if k.startswith("probe_")}

@@ -16,18 +16,33 @@ from csv_simd_tpu.offsetfree import _kth_positions as j_kth_positions
 from csv_simd_tpu.offsetfree import _prefix_for_packed_pallas as jprefix_pallas
 from csv_simd_tpu.offsetfree import _prefix_for_packed_xla as jprefix_xla
 from csv_simd_tpu.offsetfree import _select_bit as j_select_bit
+from csv_simd_tpu.offsetfree import _serve as j_serve
 from csv_simd_tpu.ops.stage1_v3 import stage1_seq_xla as jstage1_seq_xla
 from csv_simd_tpu_torch.errors import InvalidCsvFormat
+from csv_simd_tpu_torch.device_tape import _byte_window, _slots
 from csv_simd_tpu_torch.offsetfree import (
     PackedDeviceTape,
     _kth_positions,
+    _kth_positions_plain,
     _select_bit,
+    _serve,
+    _serve_plain,
     prefix_for_packed,
 )
 from csv_simd_tpu_torch.ops.stage1_v2 import pad_to_words
 
 from corpus import basic_cases, synthetic_wide_table
-from rank_select_cases import CASES, RANKS, brute_positions, ranks, words_for
+from rank_select_cases import (
+    CASES,
+    MAX_LENS,
+    RANKS,
+    STRIDES,
+    brute_positions,
+    ranks,
+    serve_case,
+    serve_reckoning,
+    words_for,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -146,6 +161,81 @@ def test_cpu_rank_select_never_reaches_the_kernels(monkeypatch):
     assert _kernels.launch_counts()["kth_positions"] == launches
     st = GLOBAL.stages.get("offsetfree.kth_kernel_queries")
     assert (st.calls if st is not None else 0) == before
+
+
+def test_cpu_gather_fields_never_reaches_the_kernels(monkeypatch):
+    """A CPU tape serves through the plain version: neither the serve
+    kernel's wrapper nor the rank-select kernel's is called, no launch is
+    counted and neither kernel's query counter moves."""
+    from csv_simd_tpu_torch import _kernels
+    from csv_simd_tpu_torch.utils.metrics import GLOBAL
+
+    def refuse(*args):
+        raise AssertionError("a CPU tensor reached _kernels")
+
+    monkeypatch.setattr(_kernels, "serve_packed", refuse)
+    monkeypatch.setattr(_kernels, "kth_positions", refuse)
+    names = ("offsetfree.serve_kernel_queries",
+             "offsetfree.kth_kernel_queries")
+
+    def calls(name):
+        st = GLOBAL.stages.get(name)
+        return st.calls if st is not None else 0
+
+    before = [calls(name) for name in names]
+    launches = _kernels.launch_counts()
+    tape = PackedDeviceTape(synthetic_wide_table(20_000), device="cpu")
+    out, lengths, valid = tape.gather_fields([0, 1, 2, -1], [3, 0, 15, 0],
+                                             max_len=24)
+    assert out.device.type == "cpu" and valid.tolist() == [True] * 3 + [
+        False]
+    tape.column_int32(0)
+    assert _kernels.launch_counts() == launches
+    assert [calls(name) for name in names] == before
+
+
+@pytest.mark.parametrize("max_len", MAX_LENS)
+@pytest.mark.parametrize("case", CASES)
+def test_plain_serve_is_rank_select_and_byte_window(case, max_len):
+    """The plain serve, which the card's serve kernel is held to, is what
+    `_serve` was before the kernel: `_slots`, `_kth_positions_plain` of
+    each query's start and end bits and `_byte_window`; and it equals the
+    JAX package's `_serve` on the same words and queries and the
+    reckoning from the unpacked bits. The words of the rank-select cases
+    with commas at their bits, both word layouts, LF and CRLF strides,
+    bytes cut at the last bit; valid queries, negative and last records,
+    out-of-range fields: TRUE lengths beyond max_len, empty fields, fields
+    across words and rows and after empty rows."""
+    words = words_for(case, seed=CASES.index(case) + 11)
+    for (jump, field_cnt), layout in zip(STRIDES, (16, 128)):
+        tw = torch.from_numpy(words.reshape(-1, layout).copy())
+        cum = prefix_for_packed(tw)
+        for cut in (False, True):
+            data, record_cnt, recs, flds = serve_case(
+                words, jump, field_cnt, 300, seed=max_len, cut=cut)
+            args = (torch.from_numpy(data), tw, cum, torch.from_numpy(recs),
+                    torch.from_numpy(flds), jump, field_cnt, record_cnt,
+                    max_len)
+            got = _serve_plain(*args)
+            slots, valid = _slots(args[3], args[4], jump, field_cnt,
+                                  record_cnt)
+            pos = _kth_positions_plain(tw, cum, torch.cat([slots - 1, slots]))
+            n = slots.shape[0]
+            want = _byte_window(args[0], pos[:n] + 1, pos[n:], valid, max_len)
+            reckoned = serve_reckoning(data, words, recs, flds, jump,
+                                       field_cnt, record_cnt, max_len)
+            jax_got = j_serve(jnp.asarray(data), jnp.asarray(tw.numpy()),
+                              jnp.asarray(cum.numpy()), jnp.asarray(recs),
+                              jnp.asarray(flds), jump, field_cnt,
+                              record_cnt, max_len=max_len)
+            assert got[0].shape == (recs.size, max_len)
+            assert [t.dtype for t in got] == [torch.uint8, torch.int32,
+                                              torch.bool]
+            for g, w, r, s, j in zip(got, want, reckoned, _serve(*args),
+                                     jax_got):
+                assert torch.equal(g, w) and torch.equal(g, s)
+                _same(g, r)
+                _same(g, j)
 
 
 def _queries(n_records: int, n_fields: int, seed: int):

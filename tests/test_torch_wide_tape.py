@@ -24,6 +24,7 @@ from csv_simd_tpu_torch.offsetfree import (
     PackedDeviceTape,
     _kth_positions,
     _kth_positions_plain,
+    _serve,
 )
 from csv_simd_tpu_torch.utils.metrics import GLOBAL
 
@@ -112,6 +113,35 @@ def test_plain_rank_select_on_repeated_rows_needs_no_copy():
     assert got.dtype == torch.int64
     assert torch.equal(got, ks.to(torch.int64) * 512 + 9 * 32 + 5)
     assert int(got[-1]) > 2**32
+
+
+@pytest.mark.parametrize("rows,wide", [((1 << 23) + 8, True),
+                                       ((1 << 22) - 8, False)])
+def test_serve_counts_each_query_twice_as_wide(rows, wide):
+    """A serve counts its queries' two k (start and end bit) as wide on
+    words that cover 2**31 bytes or more, and 0 (the counter present)
+    under: one row with one set bit repeated (a stride-0 view), one field
+    a record, so each field is the 511 bytes between two rows' bits, at
+    int64 positions past 2**31 on the wide words."""
+    one = torch.zeros((1, 16), dtype=torch.int32)
+    one[0, 9] = 1 << 5  # bit 293 of every row
+    words = one.expand(rows, 16)
+    cum = torch.arange(1, rows + 1, dtype=torch.int32)
+    data = torch.arange(4096, dtype=torch.int64).remainder(251).to(
+        torch.uint8)
+    records = torch.tensor([0, rows // 2, rows - 2, rows - 1, -1],
+                           dtype=torch.int32)
+    before = _calls("offsetfree.kth_wide_queries")
+    out, lengths, valid = _serve(data, words, cum, records,
+                                 torch.zeros(5, dtype=torch.int32), 1, 1,
+                                 rows, 8)
+    assert GLOBAL.stages["offsetfree.kth_wide_queries"].counter
+    assert _calls("offsetfree.kth_wide_queries") == before + (10 if wide
+                                                              else 0)
+    assert valid.tolist() == [True, True, True, False, False]
+    assert lengths.tolist() == [511, 511, 511, 0, 0]
+    # the bytes are read at positions clamped into the 4,096 here
+    assert out[3:].eq(0).all() and out[2].eq(data[-1]).all()
 
 
 def test_byte_window_reads_int64_starts_past_two_gib():
