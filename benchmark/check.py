@@ -13,6 +13,10 @@ held against the plain reference worked out from the file's bytes.
                      the widest relative gap of one float column of one
                      statement from the reference's float64 value, over
                      every run of the statement in the window
+    utf8_unrefused   only where the traffic sets "validate_utf8": 1 if the
+                     program built a tape from the file with its planted
+                     byte (loops.plant_offset, 0xFF) instead of refusing
+                     it, else 0
 
 Every reading has the limit that the traffic file gives it; a run is
 correct when no reading passes its limit and no step failed.
@@ -127,11 +131,17 @@ def sql_readings(ref: Reference, statements: list, results: list) -> tuple:
 def readings(ref: Reference, workload: dict, outputs: dict) -> tuple:
     """({reading: value}, operations found wrong) for a loop's outputs."""
     if "results" in outputs:
-        return sql_readings(ref, workload["statements"], outputs["results"])
-    served, bad_batches = served_mismatch(ref, outputs["served"])
-    idx = index_mismatch(ref, outputs["index"])
-    return ({"index_mismatch": idx, "served_mismatch": served},
-            bad_batches + int(idx > 0))
+        values, wrong = sql_readings(ref, workload["statements"],
+                                     outputs["results"])
+    else:
+        served, bad_batches = served_mismatch(ref, outputs["served"])
+        idx = index_mismatch(ref, outputs["index"])
+        values = {"index_mismatch": idx, "served_mismatch": served}
+        wrong = bad_batches + int(idx > 0)
+    if workload["validate_utf8"]:
+        values["utf8_unrefused"] = int(not outputs["utf8_refused"])
+        wrong += values["utf8_unrefused"]
+    return values, wrong
 
 
 def judge(values: dict, limits: dict) -> tuple:

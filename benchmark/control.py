@@ -17,6 +17,15 @@ The traffic file's "controls" list what is broken, one control each:
         19): the lengths stay true, the bytes are cut
     {"kind": "quote_unaware"}  the index built without quote parity, so
         a quoted comma counts as a delimiter
+    {"kind": "chunk_local"}  each index position taken modulo the
+        traffic's "chunk_bytes": a streamed build that left out the
+        rebasing of each chunk's positions
+    {"kind": "utf8_unchecked"}  (serving traffic with "validate_utf8")
+        the reference builds from the file with its planted byte
+        (loops.plant_offset) instead of refusing it
+
+Where the traffic sets "validate_utf8", every other control refuses the
+planted file as the reference does (Python's UTF-8 decoder).
 
 For each seed it generates the cell's table as a run does, and prints one
 JSON line for each control with the readings beside their limits and
@@ -26,6 +35,7 @@ whether the check passed them.
 from __future__ import annotations
 
 import argparse
+import codecs
 import json
 import os
 import sys
@@ -33,9 +43,33 @@ import sys
 import numpy as np
 
 
+def _is_utf8(data: np.ndarray) -> bool:
+    dec = codecs.getincrementaldecoder("utf-8")()
+    try:
+        for i in range(0, data.size, 1 << 26):
+            dec.decode(data[i:i + (1 << 26)].tobytes())
+        dec.decode(b"", final=True)
+    except UnicodeDecodeError:
+        return False
+    return True
+
+
 def control_outputs(ref, workload: dict, ctl: dict, data: np.ndarray,
-                    keys) -> dict:
+                    keys, seed: int) -> dict:
     """What the control `ctl` hands the check in the program's place."""
+    from .loops import plant_offset
+
+    out = _control_results(ref, workload, ctl, data, keys)
+    if workload["validate_utf8"]:
+        planted = data.copy()
+        planted[plant_offset(data, seed)] = 0xFF
+        out["utf8_refused"] = (ctl["kind"] != "utf8_unchecked"
+                               and not _is_utf8(planted))
+    return out
+
+
+def _control_results(ref, workload: dict, ctl: dict, data: np.ndarray,
+                     keys) -> dict:
     from .loops import _sample_records
     from .reference import structural
 
@@ -46,7 +80,9 @@ def control_outputs(ref, workload: dict, ctl: dict, data: np.ndarray,
     index = ref.index
     if ctl["kind"] == "quote_unaware":
         index = structural.structural_index(data, quote_aware=False)
-    elif ctl["kind"] != "truncate":
+    elif ctl["kind"] == "chunk_local":
+        index = index % int(workload["chunk_bytes"])
+    elif ctl["kind"] not in ("truncate", "utf8_unchecked"):
         raise ValueError(f"unknown control {ctl['kind']!r}")
     window = int(ctl.get("max_len", max_len))
     served = []
@@ -97,8 +133,8 @@ def run_control(spec: dict, cell: str, seed: int, device, rows=None,
         ref = Reference(data)
         out = []
         for ctl in workload["controls"]:
-            values, wrong = readings(
-                ref, workload, control_outputs(ref, workload, ctl, data, keys))
+            got = control_outputs(ref, workload, ctl, data, keys, seed)
+            values, wrong = readings(ref, workload, got)
             correct, checks = judge(values, workload["limits"])
             out.append({"cell": cell, "seed": seed, "control": ctl,
                         "correct": correct, "wrong_operations": wrong,

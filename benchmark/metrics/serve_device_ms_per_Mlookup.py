@@ -1,6 +1,7 @@
-"""The rank-select serve's device time (offsetfree._serve and
-_kth_positions: every kernel and copy of the traced batches) per million
-(record, field) lookups, in ms."""
+"""The rank-select serve's device time (offsetfree._serve: on the card one
+launch of kernel K2 `serve_packed` a batch, and the answers' copies to the
+host; every kernel and copy of the traced batches) per million (record,
+field) lookups, in ms."""
 
 
 def read(trace):

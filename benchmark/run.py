@@ -110,11 +110,13 @@ def per_layer_metrics(spec: dict, cell: str, traced) -> dict:
 
 @dataclass
 class Window:
-    """The measured window: its start and end on the host clock and each
-    step's (start, end, units: file bytes, lookups or statements)."""
+    """The measured window: its start and end on the host clock, each
+    step's (start, end, units: file bytes, lookups or statements), and the
+    card's peak memory over set-up's builds and the window."""
     start: float
     end: float
     ops: list
+    memory_peak_bytes: int = 0
 
 
 class Context:
@@ -271,13 +273,12 @@ def _run_program(spec, cell, workload, config, seed, seconds, trace, dev,
                 not trace or traced is not None or tries >= TRACE_TRIES):
             break
     end = ops[-1][1] if ops else time.perf_counter()
-    window = Window(start, end, ops)
-
     card = _card(dev)
     if dev.type == "cuda":
         card["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
     else:
         card["memory_peak_bytes"] = 0
+    window = Window(start, end, ops, card["memory_peak_bytes"])
 
     rng = np.random.default_rng(seed % (1 << 64))
     outputs = loop.outputs(rng) if not failed else None

@@ -74,6 +74,9 @@ def test_spans_and_per_unit_readers():
         _trace(CANNED)) is None
     assert run.load_reader("metrics", "serve_device_ms_per_Mlookup")(t) == \
         pytest.approx(0.35 / 2)
+    # the two traced steps, of 400 and 500 us, ingested 2e6 bytes
+    assert run.load_reader("metrics", "ingest_GBps.traced")(t) == \
+        pytest.approx(2e6 / 900e-6 / 1e9)
     rounds = _trace(CANNED, steps=1, units=2.0)  # one round of two
     assert run.load_reader("metrics", "sql_device_ms_per_stmt")(rounds) == \
         pytest.approx(0.35 / 2)
@@ -168,6 +171,9 @@ def test_end_to_end_readers():
     lat = run.Window(0.0, 1.0, [(0.0, 0.001 * (i + 1), 1) for i in range(100)])
     assert run.load_reader("end_to_end", "lookup_p99_ms")(lat) == \
         pytest.approx(99.01)
+    peak = run.Window(0.0, 1.0, [(0.0, 1.0, 1)], memory_peak_bytes=2266717184)
+    assert run.load_reader("end_to_end", "device_memory_GB")(peak) == \
+        pytest.approx(2.266717184)
 
 
 def test_padded_bytes_follow_the_pad_rule():

@@ -9,7 +9,8 @@ from benchmark import run
 from benchmark.trace import ITER_SPAN, Trace
 
 NEW = ("pad_ms.ingest", "extract_ms.offsets", "serve_host_ms_per_Mlookup",
-       "group_keys_s.q1", "typed_parse_ms.q6", "host_key_rows.sql")
+       "group_keys_s.q1", "typed_parse_ms.q6", "host_key_rows.sql",
+       "stream_feed_ms.streaming")
 
 
 def _host(name, ts, dur, cat="user_annotation"):
@@ -49,9 +50,11 @@ def test_each_reader_reads_its_value():
     spans = {"offsetfree.pad": (0.9, 6), "index.extract": (2.4, 2),
              "offsetfree.serve": (0.03, 10),
              "offsetfree.lookups": (0.0, 19_456 * 10),
-             "query.host_key_rows": (0.0, 2 * 5_900_000)}
+             "query.host_key_rows": (0.0, 2 * 5_900_000),
+             "streaming_chunk": (1.5, 60)}
     t = _trace(spans, ROUND)
     assert _read("pad_ms.ingest", t) == pytest.approx(450.0)
+    assert _read("stream_feed_ms.streaming", t) == pytest.approx(750.0)
     assert _read("extract_ms.offsets", t) == pytest.approx(1200.0)
     assert _read("serve_host_ms_per_Mlookup", t) == \
         pytest.approx(30.0 / 0.19456)
@@ -82,7 +85,8 @@ def test_each_reader_reads_none_without_what_it_reads(name):
     assert mod.read(_trace()) is None
     others = {"offsetfree.pad": (0.9, 6), "offsetfree.serve": (0.03, 10),
               "offsetfree.lookups": (0.0, 194_560), "index.extract": (1, 2),
-              "query.host_key_rows": (0.0, 10)}
+              "query.host_key_rows": (0.0, 10),
+              "streaming_chunk": (1.5, 60)}
     for gone in mod.READS:
         spans = {k: v for k, v in others.items() if k != gone}
         host = [e for e in ROUND if e["name"] != gone]
